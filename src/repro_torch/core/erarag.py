@@ -14,9 +14,11 @@ summarization stay on the host, as in the JAX package.
 include_store=True)`` dict as is (numpy arrays and Python values) and
 serves the same queries from it with no re-embedding.
 
-Served here: the single-buffer store (``index_shards=1``).  The
-sharded store, live resharding, the two-stage quantized scan and the
-semantic query cache raise ``NotImplementedError``.
+Served here: the single-buffer store (``index_shards=1``), with the
+exact scan or, under ``quantized_scan=True``, the two-stage quantized
+scan (``coarse_mult``, ``scan_bits`` and the config seed pass through to
+the store).  The sharded store, live resharding and the semantic query
+cache raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

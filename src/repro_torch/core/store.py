@@ -37,8 +37,25 @@ snapshot dict is accepted as is) and, paired with the graph's persisted
 delta-log tail, a restored store resumes incrementally instead of
 paying a full O(N) re-stack.
 
-Not served yet: the sharded store, the two-stage quantized scan and
-live resharding (a lifecycle policy) raise ``NotImplementedError``.
+Two-stage quantized retrieval (``quantized=True``).  The buffer then
+keeps a COMPRESSED PLANE beside the fp32 rows: a ``(cap, n_words)``
+int32 tensor of packed LSH sign-bit codes (``kernels/quantized_scan``)
+over hyperplanes derived from the persisted ``scan_seed``.  Queries run
+the coarse Hamming top-C over the codes and the exact fp32 rescore of
+only those C rows, with ``C = coarse_mult * k`` clamped to the
+capacity.  Scores are always real inner products, bitwise the exact
+scan's for the rows returned (and at C = capacity the whole result is
+the exact scan's).  The plane keeps the JAX store's invariants:
+- rows are hashed once, inside the ``write_rows`` that uploads them --
+  on append and on ``load_state`` alike, so a restored store re-derives
+  its codes and a snapshot never carries them;
+- each flag column is mirrored as a penalty word group (all ones when
+  set): padding rows and tombstones set the dead group in place;
+- compaction gathers the codes by the same ``keep`` index as the rows
+  and swaps both in together.
+
+Not served yet: the sharded store and live resharding (a lifecycle
+policy) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,11 +68,16 @@ import torch
 from repro_torch.common.config import not_ported
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.mips_topk.ops import MASK_BIAS, flagged_mips_topk
+from repro_torch.kernels.quantized_scan.ops import FLAG_SET, QuantSpec, \
+    encode_rows, hyperplanes, quantized_flagged_topk
 from repro_torch.obs.trace import NULL_TRACER
 
 # trailing indicator columns of the device buffer
 N_FLAGS = 3
 _DEAD, _SUMMARY, _LEAF = 0, 1, 2
+
+# compaction's double buffer: the gathered rows and (quantized) codes
+_Compacted = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 # sequence number of rows past the staged prefix; the monotone global
 # counter is renumbered (host metadata only, order-preserving) before it
@@ -80,8 +102,8 @@ class Hit:
 class StoreStats:
     """Instrumented refresh counters (O(delta) maintenance evidence).
 
-    Field for field the JAX package's ``StoreStats``; the routing,
-    reshard and quantized counters stay 0 on the flat store."""
+    Field for field the JAX package's ``StoreStats``; the routing and
+    reshard counters stay 0 on the flat store."""
 
     refreshes: int = 0
     full_rebuilds: int = 0
@@ -96,6 +118,7 @@ class StoreStats:
     bulk_routed: int = 0
     reshards: int = 0
     reshard_steps: int = 0
+    # scans served by the two-stage quantized pipeline
     quantized_scans: int = 0
     # scans issued by THIS store's query path (per-instance twin of the
     # process-global kernel launch counter in kernels/mips_topk/ops)
@@ -105,28 +128,44 @@ class StoreStats:
 class _DeviceBuffer:
     """Device side of the flat store: ONE ``(cap, d + N_FLAGS)`` fp32
     tensor on ``device``, grown geometrically, with padding rows
-    pre-flagged dead.  Every mutation below is an in-place write on
-    that tensor except growth (reallocate + copy) and compaction (a new
-    tensor, swapped in by ``commit_compacted``)."""
+    pre-flagged dead, and with ``quant`` a ``(cap, n_words)`` int32
+    code plane row-aligned with it (padding rows' dead group set).
+    Every mutation below is an in-place write on those tensors except
+    growth (reallocate + copy) and compaction (new tensors, swapped in
+    by ``commit_compacted``)."""
 
     def __init__(self, dim: int, device: torch.device, *,
                  min_capacity: int = 64,
+                 quant: Optional[QuantSpec] = None,
                  stats: Optional[StoreStats] = None):
         self.dim = int(dim)
         self.device = device
         self.min_capacity = int(min_capacity)
+        self.quant = quant
+        # derived from the persisted (dim, n_bits, seed) alone: a
+        # restored store re-hashes to the codes it was saved with
+        self.planes = None if quant is None else \
+            torch.from_numpy(hyperplanes(quant)).to(device)
         self.stats = stats if stats is not None else StoreStats()
         self.reset()
 
     def reset(self) -> None:
         self.capacity = 0
         self.buf: Optional[torch.Tensor] = None
+        self.codes: Optional[torch.Tensor] = None
 
     def _empty(self, cap: int) -> torch.Tensor:
         buf = torch.zeros((cap, self.dim + N_FLAGS), dtype=torch.float32,
                           device=self.device)
         buf[:, self.dim + _DEAD] = 1.0
         return buf
+
+    def _empty_codes(self, cap: int) -> torch.Tensor:
+        codes = torch.zeros((cap, self.quant.n_words), dtype=torch.int32,
+                            device=self.device)
+        lo, hi = self.quant.flag_group(_DEAD)
+        codes[:, lo:hi] = FLAG_SET
+        return codes
 
     def ensure(self, need: int) -> None:
         """Geometric growth: reallocate at the next power-of-two
@@ -140,32 +179,54 @@ class _DeviceBuffer:
         if self.buf is not None:
             buf[:self.capacity].copy_(self.buf)
         self.buf = buf
+        if self.quant is not None:
+            codes = self._empty_codes(cap)
+            if self.codes is not None:
+                codes[:self.capacity].copy_(self.codes)
+            self.codes = codes
         self.capacity = cap
         self.stats.growths += 1
 
     def write_rows(self, row0: int, block: np.ndarray) -> None:
-        """In place: ``buf[row0:row0 + m] = block`` (host -> device)."""
+        """In place: ``buf[row0:row0 + m] = block`` (host -> device),
+        and with ``quant`` the block's codes, hashed on the device: its
+        flag columns (a snapshot's tombstones included) become penalty
+        groups."""
         m = block.shape[0]
-        self.buf[row0:row0 + m].copy_(torch.from_numpy(block))
+        rows = self.buf[row0:row0 + m]
+        rows.copy_(torch.from_numpy(block))
+        if self.quant is not None:
+            self.codes[row0:row0 + m] = encode_rows(
+                rows[:, :self.dim], rows[:, self.dim:], self.planes,
+                self.quant)
 
     def mark_dead(self, rows: np.ndarray) -> None:
-        """In place: set the dead flag of ``rows``."""
+        """In place: set the dead flag of ``rows`` (and their codes'
+        dead group: no rehash)."""
         idx = torch.as_tensor(np.asarray(rows, np.int64),
                               device=self.device)
         self.buf[idx, self.dim + _DEAD] = 1.0
+        if self.quant is not None:
+            lo, hi = self.quant.flag_group(_DEAD)
+            self.codes[idx, lo:hi] = FLAG_SET
 
-    def compact_gather(self, keep: np.ndarray) -> torch.Tensor:
-        """The order-preserving gather of ``keep`` rows into a NEW
-        tensor (the double buffer); ``buf`` is untouched until
-        ``commit_compacted`` swaps it in."""
+    def compact_gather(self, keep: np.ndarray) -> _Compacted:
+        """The order-preserving gather of ``keep`` rows (and codes, by
+        the same index) into NEW tensors (the double buffer); ``buf``
+        and ``codes`` are untouched until ``commit_compacted`` swaps
+        them in."""
         out = self._empty(self.capacity)
         idx = torch.as_tensor(np.asarray(keep, np.int64),
                               device=self.device)
         out[:len(keep)] = self.buf[idx]
-        return out
+        codes = None
+        if self.quant is not None:
+            codes = self._empty_codes(self.capacity)
+            codes[:len(keep)] = self.codes[idx]
+        return out, codes
 
-    def commit_compacted(self, compacted: torch.Tensor) -> None:
-        self.buf = compacted
+    def commit_compacted(self, compacted: _Compacted) -> None:
+        self.buf, self.codes = compacted
 
     def read_rows(self, n: int) -> np.ndarray:
         if n == 0:
@@ -265,7 +326,7 @@ class _Shard:
             self.stats.rows_tombstoned += len(rows)
 
     # -- compaction: schedule (gather into double buffer) / commit ----
-    def schedule_compact(self) -> Tuple[np.ndarray, torch.Tensor]:
+    def schedule_compact(self) -> Tuple[np.ndarray, _Compacted]:
         """Dispatch the order-preserving gather of live rows into a
         double buffer; the swap happens at ``commit_compact`` (the next
         refresh), so no query issued in between depends on it."""
@@ -273,7 +334,7 @@ class _Shard:
         return keep, self.group.compact_gather(keep)
 
     def commit_compact(self, keep: np.ndarray,
-                       compacted: torch.Tensor) -> None:
+                       compacted: _Compacted) -> None:
         self.group.commit_compacted(compacted)
         n = len(keep)
         self.row_ids = [self.row_ids[i] for i in keep]
@@ -377,7 +438,7 @@ class _BaseStore:
         self._next_seq = 0          # global row insertion order
         self._compact_threshold = float(compact_threshold)
         # double-buffered compaction state
-        self._pending: Optional[Tuple[int, np.ndarray, torch.Tensor]] = \
+        self._pending: Optional[Tuple[int, np.ndarray, _Compacted]] = \
             None
         self._compact_rr = 0
         # committed reshard migrations bump the epoch; the flat store
@@ -557,29 +618,28 @@ class _BaseStore:
 
 class VectorStore(_BaseStore):
     """Single-buffer store: exactly one ``_Shard`` over one device
-    buffer (everything routes to shard 0), searched with a single
-    ``mips_topk`` call per query batch — no merge."""
+    buffer (everything routes to shard 0), searched with one scan per
+    query batch — no merge."""
 
     def __init__(self, graph, *, compact_threshold: float = 0.25,
                  min_capacity: int = 64, quantized: bool = False,
                  coarse_mult: int = 4, scan_bits: int = 64,
                  scan_seed: int = 0, device=None):
-        if quantized:
-            raise not_ported("the two-stage quantized scan "
-                              "(quantized=True)",
-                              "two-stage quantized scan")
         super().__init__(graph, compact_threshold)
         self.device = resolve_device(device)
         self.stats = StoreStats()
         self._store_stats = self.stats   # one object, all counters
         dim = graph.cfg.embed_dim
-        self.quantized = False
+        self.quantized = bool(quantized)
         self.coarse_mult = int(coarse_mult)
         self.scan_bits = int(scan_bits)
         self.scan_seed = int(scan_seed)
+        quant = QuantSpec(dim=dim, n_bits=self.scan_bits,
+                          n_flags=N_FLAGS, seed=self.scan_seed) \
+            if self.quantized else None
         self._group = _DeviceBuffer(dim, self.device,
                                     min_capacity=int(min_capacity),
-                                    stats=self.stats)
+                                    quant=quant, stats=self.stats)
         self._s = _Shard(dim, self._group, stats=self.stats)
         self._shards = [self._s]
 
@@ -589,9 +649,13 @@ class VectorStore(_BaseStore):
     def search_batch(self, queries: np.ndarray, k: int,
                      layer_filter: Optional[str] = None
                      ) -> List[List[Hit]]:
-        """Per-query top-k hits for a (B, d) query batch in ONE
-        ``mips_topk`` call; row b of the result corresponds to
-        ``queries[b]``."""
+        """Per-query top-k hits for a (B, d) query batch in ONE scan; row
+        b of the result corresponds to ``queries[b]``.
+
+        The scan is ``flagged_mips_topk``, or with ``quantized`` the
+        two-stage pipeline (coarse Hamming top-C over the code plane,
+        then the exact rescore of those C rows); flipping
+        ``self.quantized`` off gives the exact scan, the oracle."""
         with self.tracer.span("route", epoch=self.epoch):
             self._refresh()
         q = _check_queries(queries)
@@ -601,11 +665,25 @@ class VectorStore(_BaseStore):
         if n_valid == 0 or k <= 0:
             return [[] for _ in range(q.shape[0])]
         k_eff = min(k, n_valid)
-        with self.tracer.span("scan", epoch=self.epoch,
-                              n=q.shape[0], k=k_eff):
-            vals, idx = flagged_mips_topk(
-                torch.from_numpy(q).to(self.device), self._s.buf, k_eff,
-                _filter_bias(layer_filter))
+        q_dev = torch.from_numpy(q).to(self.device)
+        grp = self._group
+        if self.quantized and grp.quant is not None:
+            # C = coarse_mult * k clamped to the capacity: k <= C <= cap
+            # (k_eff <= n_valid <= rows <= cap), and at C == cap the
+            # candidate set is total -- the exact scan's result
+            n_coarse = min(self.coarse_mult * k_eff, grp.capacity)
+            with self.tracer.span("coarse_scan", epoch=self.epoch,
+                                  n=q.shape[0], k=k_eff,
+                                  fused_rescore=True):
+                vals, idx = quantized_flagged_topk(
+                    q_dev, grp.buf, grp.codes, k_eff, n_coarse,
+                    _filter_bias(layer_filter), grp.planes, grp.quant)
+            self._store_stats.quantized_scans += 1
+        else:
+            with self.tracer.span("scan", epoch=self.epoch,
+                                  n=q.shape[0], k=k_eff):
+                vals, idx = flagged_mips_topk(
+                    q_dev, grp.buf, k_eff, _filter_bias(layer_filter))
         self._store_stats.kernel_launches += 1
         vals = vals.cpu().numpy()
         idx = idx.cpu().numpy()
@@ -623,6 +701,8 @@ class VectorStore(_BaseStore):
     # persistence
     # ------------------------------------------------------------------
     def _quant_state(self) -> dict:
+        """The scan's settings.  The code plane itself is never saved:
+        a restore re-hashes every row from ``scan_seed``."""
         return {"quantized": self.quantized,
                 "coarse_mult": self.coarse_mult,
                 "scan_bits": self.scan_bits,

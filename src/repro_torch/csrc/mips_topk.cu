@@ -30,6 +30,10 @@
 //      to a small (b, ranges, k) scratch.
 //   2. mips_merge_kernel: one warp per query folds its ranges * k
 //      partial candidates into the final list by the same total order.
+// mips_rescore_kernel (entry mips_rescore_launch) is the same score loop
+// and merge over a per-query list of gathered rows: the exact rescore of
+// the two-stage quantized scan, which is XLA in the JAX package
+// (src/repro/kernels/quantized_scan/ops.py:229, in _two_stage).
 // Rows past the end of a range or of the DB are never candidates;
 // unfilled list slots hold (-inf, INT_MAX), which every real score
 // beats — including the store's masked rows at MASK_BIAS = -3e30.
@@ -133,6 +137,62 @@ struct WarpTopK {
   }
 };
 
+// The one score loop of both kernels: thread tid sums the score of tile
+// row tid against NQ queries (q0 .. q0 + NQ - 1, those >= b read as
+// zeros), one fmaf per feature in the order 0..d-1.  Tile row r is DB
+// row row_of(r), or a zero row where row_of(r) < 0.  Features are
+// staged through shared memory kDC at a time; the zero padding past d
+// adds fmaf(0, 0, acc) == acc.  Because the scan and the rescore both
+// run this chain, a rescored (query, row) score is bitwise the scan's.
+// Every thread of the block calls it (it holds barriers).
+template <int NQ, typename RowOf>
+__device__ __forceinline__ void score_tile(
+    const float* __restrict__ q, const float* __restrict__ db, int q0,
+    int b, int d, RowOf row_of, float (*rows_s)[kDC + 1],
+    float (*q_s)[NQ], float (&acc)[NQ]) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kDC) {
+    __syncthreads();
+#pragma unroll 8
+    for (int e = tid; e < kThreads * kDC; e += kThreads) {
+      const int r = e / kDC, c = e % kDC;
+      const int row = row_of(r), col = d0 + c;
+      rows_s[r][c] = (row >= 0 && col < d)
+                         ? db[static_cast<size_t>(row) * d + col] : 0.f;
+    }
+    for (int e = tid; e < kDC * NQ; e += kThreads) {
+      const int c = e / NQ, j = e % NQ;
+      const int qi = q0 + j, col = d0 + c;
+      q_s[c][j] = (qi < b && col < d)
+                      ? q[static_cast<size_t>(qi) * d + col] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) {
+      const float x = rows_s[tid][c];
+      float qv[NQ];
+      if constexpr (NQ % 4 == 0) {  // broadcast float4 loads
+        const float4* q4 = reinterpret_cast<const float4*>(&q_s[c][0]);
+#pragma unroll
+        for (int j4 = 0; j4 < NQ / 4; ++j4) {
+          const float4 w = q4[j4];
+          qv[4 * j4 + 0] = w.x;
+          qv[4 * j4 + 1] = w.y;
+          qv[4 * j4 + 2] = w.z;
+          qv[4 * j4 + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) qv[j] = q_s[c][j];
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) acc[j] = fmaf(x, qv[j], acc[j]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 mips_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
                  float* __restrict__ part_v, int32_t* __restrict__ part_i,
@@ -156,40 +216,9 @@ mips_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
 
   for (int t0 = r_begin; t0 < r_end; t0 += kThreads) {
     float acc[kBQ];
-#pragma unroll
-    for (int j = 0; j < kBQ; ++j) acc[j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += kDC) {
-      __syncthreads();
-#pragma unroll 8
-      for (int e = tid; e < kThreads * kDC; e += kThreads) {
-        const int r = e / kDC, c = e % kDC;
-        const int row = t0 + r, col = d0 + c;
-        rows_s[r][c] = (row < r_end && col < d)
-                           ? db[static_cast<size_t>(row) * d + col] : 0.f;
-      }
-      for (int e = tid; e < kDC * kBQ; e += kThreads) {
-        const int c = e / kBQ, j = e % kBQ;
-        const int qi = q0 + j, col = d0 + c;
-        q_s[c][j] = (qi < b && col < d)
-                        ? q[static_cast<size_t>(qi) * d + col] : 0.f;
-      }
-      __syncthreads();
-      // zero-padded features (col >= d) add fmaf(0, 0, acc) == acc
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) {
-        const float x = rows_s[tid][c];
-        const float4* qv = reinterpret_cast<const float4*>(&q_s[c][0]);
-#pragma unroll
-        for (int j4 = 0; j4 < kBQ / 4; ++j4) {
-          const float4 w = qv[j4];
-          acc[4 * j4 + 0] = fmaf(x, w.x, acc[4 * j4 + 0]);
-          acc[4 * j4 + 1] = fmaf(x, w.y, acc[4 * j4 + 1]);
-          acc[4 * j4 + 2] = fmaf(x, w.z, acc[4 * j4 + 2]);
-          acc[4 * j4 + 3] = fmaf(x, w.w, acc[4 * j4 + 3]);
-        }
-      }
-    }
+    score_tile<kBQ>(q, db, q0, b, d,
+                    [=](int r) { return t0 + r < r_end ? t0 + r : -1; },
+                    rows_s, q_s, acc);
 
 #pragma unroll
     for (int j = 0; j < kBQ; ++j) scores_s[j][tid] = acc[j];
@@ -240,6 +269,52 @@ mips_merge_kernel(const float* __restrict__ part_v,
              out_i + static_cast<size_t>(qi) * k, k, lane);
 }
 
+// The rescore of the two-stage quantized scan: one block per (query,
+// range of that query's candidates).  The query's own candidate rows
+// (its index list, cand[qi]) go through score_tile, the scan's score
+// loop, so a (query, row) score here is bitwise the score
+// mips_scan_kernel computes for that row.  Each warp
+// keeps a top-k list over the rows it scores; the lists go to a
+// (b, ranges, 4, k) scratch that mips_merge_kernel folds.  Candidate
+// indices outside [0, n) are never scored.
+__global__ void __launch_bounds__(kThreads)
+mips_rescore_kernel(const float* __restrict__ q,
+                    const float* __restrict__ db,
+                    const int32_t* __restrict__ cand,
+                    float* __restrict__ part_v, int32_t* __restrict__ part_i,
+                    int n, int d, int n_cand, int k, int cands_per_range,
+                    int n_ranges) {
+  __shared__ float rows_s[kThreads][kDC + 1];
+  __shared__ float q_s[kDC][1];
+  __shared__ int row_s[kThreads];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qi = blockIdx.y;
+  const int range = blockIdx.x;
+  const int p_begin = range * cands_per_range;
+  const int p_end = min(n_cand, p_begin + cands_per_range);
+  const int32_t* my_cand = cand + static_cast<size_t>(qi) * n_cand;
+
+  WarpTopK list;
+  list.init();
+  for (int t0 = p_begin; t0 < p_end; t0 += kThreads) {
+    __syncthreads();
+    int row = t0 + tid < p_end ? my_cand[t0 + tid] : -1;
+    row_s[tid] = (row >= 0 && row < n) ? row : -1;
+    // score_tile's first barrier publishes row_s
+    float acc[1];
+    score_tile<1>(q, db, qi, qi + 1, d, [&](int r) { return row_s[r]; },
+                  rows_s, q_s, acc);
+    row = row_s[tid];
+    list.offer(acc[0], row, row >= 0, k, lane);
+  }
+  const size_t off =
+      ((static_cast<size_t>(qi) * n_ranges + range) * kWarps + warp) * k;
+  list.store(part_v + off, part_i + off, k, lane);
+}
+
 }  // namespace
 
 // part_v / part_i: (b, n_ranges, k) scratch; out_v / out_i: (b, k).
@@ -264,6 +339,35 @@ extern "C" int mips_topk_launch(const float* q, const float* db,
   const dim3 merge_grid((b + kWarps - 1) / kWarps);
   mips_merge_kernel<<<merge_grid, kThreads, 0, s>>>(
       part_v, part_i, out_v, out_i, b, n_ranges * k, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (b, d) augmented queries; cand: (b, n_cand) row indices into db
+// (n, d); part_v / part_i: (b, n_ranges, 4, k) scratch; out_v / out_i:
+// (b, k).  cands_per_range must be a multiple of 128 with
+// n_ranges == ceil(n_cand / cands_per_range).
+extern "C" int mips_rescore_launch(const float* q, const float* db,
+                                   const int32_t* cand, float* part_v,
+                                   int32_t* part_i, float* out_v,
+                                   int32_t* out_i, int b, int n, int d,
+                                   int n_cand, int k, int cands_per_range,
+                                   int n_ranges, void* stream) {
+  if (b <= 0 || n <= 0 || d <= 0 || n_cand < 1 || k < 1 || k > kMaxK ||
+      k > n_cand || cands_per_range <= 0 ||
+      cands_per_range % kThreads != 0 ||
+      n_ranges != (n_cand + cands_per_range - 1) / cands_per_range) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_ranges, b);
+  mips_rescore_kernel<<<grid, kThreads, 0, s>>>(
+      q, db, cand, part_v, part_i, n, d, n_cand, k, cands_per_range,
+      n_ranges);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 merge_grid((b + kWarps - 1) / kWarps);
+  mips_merge_kernel<<<merge_grid, kThreads, 0, s>>>(
+      part_v, part_i, out_v, out_i, b, n_ranges * kWarps * k, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-"""Shared kernel utilities: ``cdiv``, the device resolver, and the
-builder/loader for the hand-written CUDA kernels under ``csrc/``.
+"""Shared kernel utilities: ``cdiv``, the scan grid (``scan_ranges``),
+the device resolver, and the builder/loader for the hand-written CUDA
+kernels under ``csrc/``.
 
 Build route: each ``csrc/<name>.cu`` is compiled on first use by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -33,9 +34,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# The scan grid shared by mips_topk, mips_rescore and hamming_topk
+SCAN_ROWS = 128         # rows per block tile (kThreads in the sources)
+SCAN_BQ = 16            # queries per block (kBQ in the sources)
+_BLOCKS_PER_SM = 4      # scan blocks aimed at per SM when choosing ranges
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def scan_ranges(b: int, n: int, n_sms: int, *,
+                queries_per_block: int = SCAN_BQ) -> Tuple[int, int]:
+    """(rows_per_range, n_ranges) of the scan grid: enough n-ranges
+    that the query tiles times the ranges give every SM a few blocks,
+    each range a whole number of 128-row tiles."""
+    tiles = cdiv(n, SCAN_ROWS)
+    want = max(1, cdiv(_BLOCKS_PER_SM * n_sms,
+                       cdiv(b, queries_per_block)))
+    rows_per_range = cdiv(tiles, min(tiles, want)) * SCAN_ROWS
+    return rows_per_range, cdiv(n, rows_per_range)
 
 
 def resolve_device(device=None) -> torch.device:

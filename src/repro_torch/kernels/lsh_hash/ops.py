@@ -20,7 +20,7 @@ from repro_torch.kernels.common import cdiv, check_launch, load_kernel, \
 from repro_torch.kernels.lsh_hash import ref
 from repro_torch.obs.metrics import global_registry
 
-MAX_K = 64   # hyperplanes the CUDA kernel takes
+MAX_K = 512  # hyperplanes the CUDA kernel takes (8 groups of 64)
 
 # CUDA kernel launches (the plain CPU route is not counted)
 _LAUNCHES = global_registry().counter("kernels.lsh_hash.launches")

@@ -6,9 +6,15 @@ or raises, and a CPU tensor to the plain version.  Both order by
 the store's per-flag biases into the queries (``augment_queries``), so
 the kernel stays a plain MIPS top-k.
 
-The launch counter lives on the process-global obs registry
-(``kernels.mips_topk.launches``) and counts CUDA kernel launches only;
-per-store attribution of scans is ``StoreStats.kernel_launches``.
+``mips_rescore`` is the exact stage of the two-stage quantized scan:
+the same score loop and merge over each query's own list of candidate
+rows (``mips_rescore_launch`` in the same source), so a rescored score
+is bitwise the scan's score for that row.
+
+The launch counters live on the process-global obs registry
+(``kernels.mips_topk.launches``, ``kernels.mips_rescore.launches``) and
+count CUDA kernel launches only; per-store attribution of scans is
+``StoreStats.kernel_launches``.
 """
 from __future__ import annotations
 
@@ -18,41 +24,45 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import cdiv, check_launch, load_kernel, \
-    stream_ptr
+from repro_torch.kernels.common import SCAN_ROWS, check_launch, \
+    load_kernel, scan_ranges, stream_ptr
 from repro_torch.kernels.mips_topk import ref
 from repro_torch.obs.metrics import global_registry
 
 MAX_K = 64          # k the CUDA kernel takes
-_ROWS = 128         # rows per block tile (kThreads in the source)
-_BQ = 16            # queries per block (kBQ in the source)
-_BLOCKS_PER_SM = 4  # scan blocks aimed at per SM when choosing ranges
 
 _LAUNCHES = global_registry().counter("kernels.mips_topk.launches")
+_RESCORE_LAUNCHES = global_registry().counter(
+    "kernels.mips_rescore.launches")
 
 _SIGNATURES = {
     "mips_topk_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p], ctypes.c_int),
+    "mips_rescore_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                            + [ctypes.c_void_p], ctypes.c_int),
 }
 
 
 def reset_launch_count() -> None:
     _LAUNCHES.reset()
+    _RESCORE_LAUNCHES.reset()
 
 
 def launch_count() -> int:
-    """CUDA kernel launches since the last reset."""
+    """``mips_topk`` CUDA kernel launches since the last reset."""
     return _LAUNCHES.count
 
 
-def scan_ranges(b: int, n: int, n_sms: int) -> Tuple[int, int]:
-    """(rows_per_range, n_ranges) of the scan grid: enough n-ranges
-    that the query tiles times the ranges give every SM a few blocks,
-    each range a whole number of 128-row tiles."""
-    tiles = cdiv(n, _ROWS)
-    want = max(1, cdiv(_BLOCKS_PER_SM * n_sms, cdiv(b, _BQ)))
-    rows_per_range = cdiv(tiles, min(tiles, want)) * _ROWS
-    return rows_per_range, cdiv(n, rows_per_range)
+def rescore_launch_count() -> int:
+    """``mips_rescore`` CUDA kernel launches since the last reset."""
+    return _RESCORE_LAUNCHES.count
+
+
+def _check_f32(name: str, *ts: torch.Tensor) -> None:
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{name} kernel takes float32 inputs")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} kernel takes contiguous inputs")
 
 
 def mips_topk_cuda(q: torch.Tensor, db: torch.Tensor,
@@ -62,10 +72,7 @@ def mips_topk_cuda(q: torch.Tensor, db: torch.Tensor,
     n = db.shape[0]
     if k > MAX_K:
         raise ValueError(f"mips_topk kernel takes k <= {MAX_K}, got {k}")
-    if q.dtype != torch.float32 or db.dtype != torch.float32:
-        raise TypeError("mips_topk kernel takes float32 inputs")
-    if not (q.is_contiguous() and db.is_contiguous()):
-        raise ValueError("mips_topk kernel takes contiguous inputs")
+    _check_f32("mips_topk", q, db)
     dev = q.device
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -103,6 +110,65 @@ def mips_topk(q: torch.Tensor, db: torch.Tensor,
     if q.device.type == "cpu":
         return ref.mips_topk_ref(q, db, k)
     raise ValueError(f"mips_topk: no route for device {q.device}")
+
+
+def mips_rescore_cuda(q: torch.Tensor, db: torch.Tensor,
+                      cand: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``mips_rescore_launch`` of ``csrc/mips_topk.cu``."""
+    b, d = q.shape
+    n = db.shape[0]
+    c = cand.shape[1]
+    if k > MAX_K:
+        raise ValueError(f"mips_rescore kernel takes k <= {MAX_K}, "
+                         f"got {k}")
+    _check_f32("mips_rescore", q, db)
+    if cand.dtype != torch.int32 or not cand.is_contiguous():
+        raise TypeError("mips_rescore kernel takes contiguous int32 "
+                        "candidates")
+    dev = q.device
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return vals, idx
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_range, n_ranges = scan_ranges(b, c, n_sms, queries_per_block=1)
+    part_v = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),
+                         dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),
+                         dtype=torch.int32,
+                         device=dev)
+    lib = load_kernel("mips_topk", _SIGNATURES)
+    err = lib.mips_rescore_launch(
+        q.data_ptr(), db.data_ptr(), cand.data_ptr(), part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, d, c, k,
+        per_range, n_ranges, stream_ptr(dev))
+    check_launch(lib, "mips_topk", err)
+    _RESCORE_LAUNCHES.inc()
+    return vals, idx
+
+
+def mips_rescore(q: torch.Tensor, db: torch.Tensor, cand: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner products of each query against ITS OWN candidate rows
+    ``cand[b]`` (distinct indices into ``db``): (vals (b, k) f32, DB row
+    idx (b, k) int32) by (score desc, row asc).  Needs k <= c."""
+    if q.dim() != 2 or db.dim() != 2 or q.shape[1] != db.shape[1] \
+            or cand.dim() != 2 or cand.shape[0] != q.shape[0]:
+        raise ValueError(f"expected (b, d), (n, d) and (b, c), got "
+                         f"{tuple(q.shape)}, {tuple(db.shape)} and "
+                         f"{tuple(cand.shape)}")
+    if not 1 <= k <= cand.shape[1]:
+        raise ValueError(f"need 1 <= k <= c, got k={k}, "
+                         f"c={cand.shape[1]}")
+    if not q.device == db.device == cand.device:
+        raise ValueError(f"inputs on {q.device}, {db.device} and "
+                         f"{cand.device}")
+    if q.device.type == "cuda":
+        return mips_rescore_cuda(q, db, cand, k)
+    if q.device.type == "cpu":
+        return ref.mips_rescore_ref(q, db, cand, k)
+    raise ValueError(f"mips_rescore: no route for device {q.device}")
 
 
 # Additive score bias that pushes a row below every real candidate

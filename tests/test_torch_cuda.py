@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (which ``test_torch_lsh_hash.py`` / ``test_torch_mips_topk.py``
-hold against the JAX package on the CPU).
+versions (which ``test_torch_lsh_hash.py``, ``test_torch_mips_topk.py``,
+``test_torch_hamming_topk.py`` and ``test_torch_quantized_scan.py`` hold
+against the JAX package on the CPU).
 
 Every test here carries the ``cuda`` marker and skips without a card:
 the kernels have no CPU interpret mode.  This file imports no JAX (the
@@ -18,8 +19,11 @@ from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
+from repro_torch.kernels.hamming_topk import ops as ham_ops
+from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
 from repro_torch.kernels.lsh_hash import ops as lsh_ops
 from repro_torch.kernels.mips_topk import ops as mips_ops
+from repro_torch.kernels.quantized_scan import ops as quant_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +41,8 @@ def cuda():
 
 @pytest.mark.parametrize("n,d,k", [(1, 256, 12), (300, 256, 12),
                                    (77, 259, 33), (64, 128, 64),
-                                   (20000, 256, 12)])
+                                   (20000, 256, 12), (300, 256, 128),
+                                   (129, 64, 200)])
 def test_lsh_kernel_matches_plain(cuda, n, d, k):
     rng = np.random.default_rng(n + d + k)
     v = rng.standard_normal((n, d)).astype(np.float32)
@@ -110,12 +115,99 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mips_ops.mips_topk(v, torch.zeros((100, 16), device=cuda), 65)
     with pytest.raises(ValueError):
         mips_ops.mips_topk(v, torch.zeros((16, 100), device=cuda).T, 4)
+    codes = torch.zeros((8, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ham_ops.hamming_topk(codes.float(), codes.float(), 2)
+    with pytest.raises(ValueError):
+        ham_ops.hamming_topk(codes.T, codes.T, 2)
+    with pytest.raises(ValueError):
+        ham_ops.hamming_topk(codes, codes, 9)
+    with pytest.raises(ValueError):
+        mips_ops.mips_rescore(v, v, codes, 4)      # 3 candidates < k
+
+
+@pytest.mark.parametrize("b,n,w,c", [(1, 1, 1, 1), (5, 300, 11, 32),
+                                     (64, 5000, 11, 32), (17, 1000, 2, 1000),
+                                     (3, 70000, 11, 4096), (2, 700, 67, 50),
+                                     (64, 4096, 11, 4096)])
+def test_hamming_kernel_matches_plain_bitwise(cuda, b, n, w, c):
+    rng = np.random.default_rng(b + n + w + c)
+    base = rng.integers(0, 2**32, size=(max(1, n // 8), w),
+                        dtype=np.uint32)
+    dbc = base[rng.integers(0, base.shape[0], size=n)]   # many ties
+    qc = rng.integers(0, 2**32, size=(b, w), dtype=np.uint32)
+    qc[0] = dbc[n - 1]
+    qt = torch.from_numpy(qc.view(np.int32)).to(cuda)
+    dt = torch.from_numpy(dbc.view(np.int32)).to(cuda)
+    before = ham_ops.launch_count()
+    dist, idx = ham_ops.hamming_topk(qt, dt, c)
+    assert ham_ops.launch_count() == before + 1
+    want_d, want_i = hamming_topk_ref(qt, dt, c)
+    assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    assert dist[0, 0].item() == 0
+    for j in (0, b - 1):   # batch invariance
+        d1, i1 = ham_ops.hamming_topk(qt[j:j + 1].contiguous(), dt, c)
+        assert torch.equal(d1, dist[j:j + 1]) and torch.equal(i1,
+                                                               idx[j:j + 1])
+
+
+@pytest.mark.parametrize("b,n,d,k", [(4, 300, 64, 8), (9, 700, 259, 8),
+                                     (64, 3000, 259, 8), (3, 130, 32, 60)])
+def test_rescore_at_full_coverage_is_the_exact_scan(cuda, b, n, d, k):
+    q, db = _flagged_data(b, n, d, seed=b + n + 1)
+    qt, dbt = torch.from_numpy(q).to(cuda), torch.from_numpy(db).to(cuda)
+    bias = (mips_ops.MASK_BIAS, 0.0, 0.0)
+    q_aug = mips_ops.augment_queries(qt, bias).contiguous()
+    want_v, want_i = mips_ops.flagged_mips_topk(qt, dbt, k, bias)
+    # every row a candidate, each query's list in its own order
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    cand = torch.stack([torch.randperm(n, device=cuda, generator=gen)
+                        for _ in range(b)]).to(torch.int32)
+    before = mips_ops.rescore_launch_count()
+    vals, idx = mips_ops.mips_rescore(q_aug, dbt, cand, k)
+    assert mips_ops.rescore_launch_count() == before + 1
+    assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+    # a partial list: its scores are the exact kernel's for those rows
+    part = cand[:, : max(k, n // 3)].contiguous()
+    pv, pi = mips_ops.mips_rescore(q_aug, dbt, part, k)
+    plain_v, plain_i = mips_ops.mips_rescore(q_aug.cpu(), dbt.cpu(),
+                                             part.cpu(), k)
+    np.testing.assert_allclose(pv.cpu().numpy(), plain_v.numpy(), rtol=0,
+                               atol=SCORE_TOL)
+    for j in range(b):
+        rows = pi[j].long()
+        ev, _ = mips_ops.mips_topk(q_aug[j:j + 1].contiguous(),
+                                   dbt[rows].contiguous(), k)
+        assert torch.equal(ev[0], pv[j])
+
+
+def test_quantized_full_coverage_on_card(cuda):
+    q, db = _flagged_data(16, 2000, 256, seed=7)
+    spec = quant_ops.QuantSpec(256, 64, 3, 0)
+    qt, dbt = torch.from_numpy(q).to(cuda), torch.from_numpy(db).to(cuda)
+    planes = torch.from_numpy(quant_ops.hyperplanes(spec)).to(cuda)
+    codes = quant_ops.encode_rows(dbt[:, :256], dbt[:, 256:], planes, spec)
+    for bias in ((mips_ops.MASK_BIAS, 0.0, 0.0),
+                 (mips_ops.MASK_BIAS, mips_ops.MASK_BIAS, 0.0)):
+        full = quant_ops.quantized_flagged_topk(qt, dbt, codes, 8, 2000,
+                                                bias, planes, spec)
+        exact = mips_ops.flagged_mips_topk(qt, dbt, 8, bias)
+        assert torch.equal(full[0], exact[0])
+        assert torch.equal(full[1], exact[1])
 
 
 def test_quickstart_on_card_matches_cpu(cuda):
+    _quickstart_card_vs_cpu(cuda, quantized_scan=False)
+
+
+def test_quantized_quickstart_on_card_matches_cpu(cuda):
+    _quickstart_card_vs_cpu(cuda, quantized_scan=True)
+
+
+def _quickstart_card_vs_cpu(cuda, quantized_scan):
     cfg = EraRAGConfig(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,
                        max_layers=3, chunk_tokens=32, top_k=8,
-                       token_budget=1024)
+                       token_budget=1024, quantized_scan=quantized_scan)
     corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
     init, rounds = corpus.growth_rounds(0.5, 5)
     gpu = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)

@@ -18,7 +18,8 @@ from repro_torch.core.lsh import HyperplaneLSH
 from repro_torch.kernels.lsh_hash import ops
 from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
 
-SHAPES = [(1, 256, 12), (300, 256, 12), (77, 259, 33), (64, 128, 64)]
+SHAPES = [(1, 256, 12), (300, 256, 12), (77, 259, 33), (64, 128, 64),
+          (50, 256, 128)]
 
 
 def _inputs(n, d, k, seed=0):
@@ -95,6 +96,7 @@ def test_hyperplane_lsh_matches_reference(dim, k, seed):
 
 def test_kernel_refuses_wide_k():
     v = torch.zeros((4, 8))
-    h = torch.zeros((8, 65))
-    with pytest.raises(ValueError, match="k <= 64"):
+    h = torch.zeros((8, ops.MAX_K + 1))
+    with pytest.raises(ValueError, match=f"k <= {ops.MAX_K}"):
         ops.lsh_hash_cuda(v, h)
+    assert ops.MAX_K == 512   # 8 groups of 64 hyperplanes

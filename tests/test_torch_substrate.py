@@ -135,7 +135,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"index_shards": 2}, {"index_shards": 0}, {"quantized_scan": True},
+    {"index_shards": 2}, {"index_shards": 0},
+    {"quantized_scan": True, "index_shards": 2},   # a sharded code plane
     {"query_cache": True}, {"reshard_skew_threshold": 1.5}])
 def test_unported_options_raise(kw):
     cfg = dataclasses.replace(ERARAG_DEFAULT, embed_dim=16, **kw)
