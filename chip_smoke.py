@@ -51,7 +51,27 @@ package.  Phases, each printing one JSON line:
                  plain version and the exact kernel at the same shapes;
                  the whole two-stage scan beside the exact scan at the
                  main path's shape and at 2^22.
-7. ``kernels``   one line listing every kernel with its numbers.
+7. ``flash_attention`` the forward and backward kernels against the
+                 plain version (``attention_ref`` and autograd through it):
+                 output, logsumexp and dQ/dK/dV from a seeded dO at the
+                 training slice's shape (b = 2, hq = 32, hkv = 8,
+                 l = 4096, d = 128, bf16, causal) and at small fp32 shapes
+                 (odd lengths, lq < lk causal, not causal, groups 1, 4
+                 and 8); two backward runs must agree bitwise.  Times
+                 beside the bound and beside
+                 ``scaled_dot_product_attention`` (a yardstick only).
+8. ``train_path`` the LM training slice through the port's entry points
+                 (``init_params`` -> ``run_training``/``make_train_step``
+                 -> ``loss_fn``): llama3-8b at full width with 4 layers,
+                 5 AdamW steps of 2 sequences of 4096 tokens in 2
+                 microbatches, bf16 compute, on one fixed batch.  Every
+                 loss must be finite and the last below the first; both
+                 attention kernels must have launched and the plain
+                 attention never (counters set to 0 just before).
+9. ``train_reference`` llama3-8b at ``reduced()``: 3 steps from the same
+                 seeded weights on the card (kernels) and on the CPU
+                 (plain versions); losses and weights must agree.
+10. ``kernels``  one line listing every kernel with its numbers.
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -81,6 +101,22 @@ POPC_PER_SM_CLOCK = 16
 N_DEPLOY = 1 << 22          # rows of the deployment-size checks
 LSH_FLIP_BAND = 1e-5        # |fp64 projection| below which a bit may flip
 SCORE_TOL = 1e-5            # kernel vs plain score tolerance (fp32 sums)
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+# flash attention, kernels vs plain: |out error| <= out_abs + out_rel *
+# |plain out|.  fp32 sums in other orders differ by ~1e-7 of the summed
+# terms (out_abs); bf16 outputs round those fp32 values, so one may land
+# one bf16 step apart (out_rel = 2^-7), and the kernels' backward reads
+# the bf16 output for D = rowsum(dO * O).  lse: rows of up to 4096
+# exponentials summed in two orders, |lse| ~ 10.
+FA_TOL = {"float32": {"out_abs": 2e-5, "out_rel": 0.0, "lse": 1e-4,
+                      "grad_rel": 1e-5},
+          "bfloat16": {"out_abs": 2e-5, "out_rel": 2.0 ** -7, "lse": 1e-4,
+                       "grad_rel": 1e-2}}
+TRAIN_SHAPE = {"b": 2, "hq": 32, "hkv": 8, "l": 4096, "d": 128}
+# card vs CPU training, fp32 compute: losses, and each weight's change
+# over the steps (relative Frobenius; see tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_UPDATE_RTOL = 1e-4
 
 
 class CheckFailed(AssertionError):
@@ -772,6 +808,288 @@ def run_hamming(rag_q, questions):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(b, hq, hkv, lq, lk, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            for shape in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d),
+                          (b, hq, lq, d))]
+
+
+def _rel_fro(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) /
+                 torch.linalg.norm(want).clamp_min(1e-30))
+
+
+def attention_case(b, hq, hkv, lq, lk, d, causal, dtype, seed,
+                   timed=False):
+    """The kernels against the plain version on one shape; with
+    ``timed``, CUDA-event medians of kernels, plain and SDPA too."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        attention_grads_ref, attention_lse_ref, attention_ref
+
+    q, k, v, do = _attn_inputs(b, hq, hkv, lq, lk, d, dtype, seed)
+    tname = str(dtype).split(".")[1]
+    tol = FA_TOL[tname]
+    label = f"{(b, hq, hkv, lq, lk, d)} {tname} causal={causal}"
+    o, lse = ops.flash_attention_fwd_cuda(q, k, v, causal)
+    want = attention_ref(q, k, v, causal=causal).float()
+    out_diff = (o.float() - want).abs()
+    out_err = float(out_diff.max())
+    # beyond the rounding step: the fp32 sums' own difference
+    out_excess = max(0.0, float(
+        (out_diff - tol["out_rel"] * want.abs()).max()))
+    out_ok = out_excess <= tol["out_abs"]
+    del out_diff
+    lse_err = float((lse - attention_lse_ref(q, k, causal=causal))
+                    .abs().max())
+    del want
+    grads = ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
+          f"flash_attention {label}: two backward runs differ")
+    del again
+    plain = attention_grads_ref(q, k, v, do, causal=causal)
+    grad_rel = {n: _rel_fro(g, p) for n, g, p in zip(("dq", "dk", "dv"),
+                                                     grads, plain)}
+    grad_abs = max(float((g.float() - p.float()).abs().max())
+                   for g, p in zip(grads, plain))
+    del plain, grads
+    check(out_ok, f"flash_attention {label}: output error {out_err}, "
+          f"{out_excess} beyond out_rel * |out|, tolerance {tol}")
+    check(lse_err <= tol["lse"], f"flash_attention {label}: lse error "
+          f"{lse_err} > {tol['lse']}")
+    for n, e in grad_rel.items():
+        check(e <= tol["grad_rel"], f"flash_attention {label}: {n} "
+              f"relative error {e} > {tol['grad_rel']}")
+    case = {"shape": {"b": b, "hq": hq, "hkv": hkv, "lq": lq, "lk": lk,
+                      "d": d, "dtype": tname, "causal": causal},
+            "out_max_abs_err": out_err,
+            "out_max_err_beyond_rel_step": out_excess,
+            "lse_max_abs_err": lse_err,
+            "grad_max_abs_err": grad_abs, "grad_rel_fro_err": grad_rel,
+            "tolerance": tol, "backward_bitwise_repeatable": True}
+    if not timed:
+        return case
+    # the least work: visible (query, key) pairs; forward 2 products of
+    # 2 FLOP per pair and feature, backward 5 (S again, dP, dV, dK, dQ)
+    pairs = sum(min(lk, i + 1 + lk - lq) for i in range(lq)) if causal \
+        else lq * lk
+    flop = 2.0 * b * hq * pairs * d
+    es = q.element_size()
+    qo_bytes = es * b * hq * lq * d
+    kv_bytes = es * b * hkv * lk * d
+    lse_bytes = 4.0 * b * hq * lq
+    fwd_bound = bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes, 2 * flop,
+                      BF16_FLOP_PER_S)
+    bwd_bound = bound(5 * qo_bytes + 4 * kv_bytes + lse_bytes, 5 * flop,
+                      BF16_FLOP_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+    case["timing"] = {
+        "fwd_ms": time_ms(lambda: ops.flash_attention_fwd_cuda(q, k, v,
+                                                               causal)),
+        "bwd_ms": time_ms(lambda: ops.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal)),
+        "fwd_plain_ms": time_ms(lambda: attention_ref(q, k, v,
+                                                      causal=causal),
+                                reps=5),
+        "bwd_plain_ms": time_ms(lambda: attention_grads_ref(
+            q, k, v, do, causal=causal), reps=5),
+        "fwd_library_ms": time_ms(lambda: sdpa(
+            q, k, v, is_causal=causal, enable_gqa=True)),
+        "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), do, retain_graph=True)),
+        "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
+        "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+        "visible_pairs_per_head": pairs, "fwd_flop": 2 * flop,
+        "bwd_flop": 5 * flop}
+    del lib_out
+    torch.cuda.empty_cache()
+    return case
+
+
+def run_flash_attention():
+    ts = TRAIN_SHAPE
+    main = attention_case(ts["b"], ts["hq"], ts["hkv"], ts["l"], ts["l"],
+                          ts["d"], True, torch.bfloat16, seed=11, timed=True)
+    small = [attention_case(*shape, torch.float32, seed=20 + i)
+             for i, shape in enumerate((
+                 (1, 4, 4, 37, 37, 16, True),       # group 1, odd l
+                 (2, 8, 2, 65, 130, 32, True),      # lq < lk, causal
+                 (2, 8, 1, 100, 77, 64, False),     # group 8, lq > lk
+                 (1, 4, 1, 129, 129, 128, True),    # group 4
+                 (1, 8, 8, 63, 200, 128, False)))]  # not causal
+    emit("flash_attention", training_shape=main, small_fp32=small)
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the LM training step at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4            # depth cut of llama3-8b's 32 layers
+TRAIN_STEPS = 5
+
+
+def _matmul_params(cfg) -> int:
+    """Parameters that enter a product per token: all but the embedding
+    table (a gather) and the norms."""
+    d = cfg.d_model
+    return cfg.param_count() - cfg.vocab_size * d - \
+        cfg.n_layers * 2 * d - d
+
+
+def run_train_path():
+    from dataclasses import replace
+
+    from repro_torch.configs.llama3_8b import llama3_8b
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    cfg = replace(llama3_8b(), n_layers=TRAIN_LAYERS)
+    b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "train_path: parameter count")
+    batch = synthetic_lm_batches(cfg.vocab_size, b, l, seed=0)(0)
+    loop = LoopConfig(max_steps=TRAIN_STEPS, n_microbatches=2, log_every=0)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launch_count()
+    fa_ref.reset_call_count()
+    res = run_training(lambda m, bt: loss_fn(m, bt, cfg), model,
+                       lambda step: batch, loop)
+    launches = {"flash_attention_fwd": fa_ops.launch_count(),
+                "flash_attention_bwd": fa_ops.bwd_launch_count(),
+                "attention_ref": fa_ref.call_count()}
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    # attention's share of a step: the kernels at the microbatch's shape
+    # (b = 1), times their launches per step
+    q, k, v, do = _attn_inputs(b // loop.n_microbatches, cfg.n_heads,
+                               cfg.n_kv_heads, l, l, cfg.d_head,
+                               torch.bfloat16, seed=12)
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, True)
+    mb_fwd_ms = time_ms(lambda: fa_ops.flash_attention_fwd_cuda(q, k, v,
+                                                                True))
+    mb_bwd_ms = time_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, True))
+    del q, k, v, do, o, lse
+
+    check(all(np.isfinite(res.losses)), f"train_path: losses {res.losses}")
+    check(res.losses[-1] < res.losses[0],
+          f"train_path: loss did not fall: {res.losses}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] > 0, f"{name} never launched on the training "
+                                  f"path")
+    check(launches["attention_ref"] == 0,
+          "train_path: the plain attention ran on the card")
+    tokens = b * l
+    step_s = statistics.median(res.step_s[1:])
+    pairs = l * (l + 1) // 2
+    model_flop = 3.0 * (2.0 * _matmul_params(cfg) * tokens +
+                        4.0 * b * cfg.n_heads * cfg.d_head * pairs *
+                        cfg.n_layers)
+    attn_s = (launches["flash_attention_fwd"] * mb_fwd_ms +
+              launches["flash_attention_bwd"] * mb_bwd_ms) / TRAIN_STEPS / 1e3
+    emit("train_path", model="llama3-8b", reduced={"n_layers": [32, 4]},
+         params=n_params, d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+         vocab_size=cfg.vocab_size, batch=b, seq_len=l,
+         n_microbatches=loop.n_microbatches, optimizer="adamw",
+         base_lr=loop.base_lr, compute_dtype="bfloat16",
+         steps=TRAIN_STEPS, init_s=init_s, losses=res.losses,
+         step_s=res.step_s, median_step_s_after_first=step_s,
+         tokens_per_s=tokens / step_s, model_flop_per_step=model_flop,
+         model_flop_per_s=model_flop / step_s,
+         max_memory_allocated_bytes=peak, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         microbatch_attention_ms={"fwd": mb_fwd_ms, "bwd": mb_bwd_ms},
+         attention_s_per_step=attn_s,
+         attention_share_of_step=attn_s / step_s,
+         straggler_steps=res.straggler_steps)
+    return launches
+
+
+def run_train_reference():
+    """llama3-8b at ``reduced()``: the same seeded weights trained 3 steps
+    on the card and on the CPU, fp32 compute."""
+    from repro_torch.configs.llama3_8b import llama3_8b
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.optimizer import cosine_schedule, \
+        make_train_step, opt_init
+
+    cfg = llama3_8b().reduced()
+    tree = params_to_numpy(init_params(cfg, torch.Generator()
+                                       .manual_seed(0)))
+    make = synthetic_lm_batches(cfg.vocab_size, 4, 64, seed=1)
+    step = make_train_step(
+        lambda m, bt: loss_fn(m, bt, cfg, compute_dtype=torch.float32),
+        lr_schedule=cosine_schedule(1e-2, 1, 3), n_microbatches=2)
+    fa_ops.reset_launch_count()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_numpy(tree, cfg, device=dev)
+        opt = opt_init(model)
+        losses = []
+        for i in range(3):
+            model, opt, m = step(model, opt, make(i))
+            losses.append(float(m["loss"]))
+        out[dev] = losses, params_to_numpy(model)
+    card_launches = fa_ops.launch_count()
+    check(card_launches > 0, "train_reference: the card ran no kernel")
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    check(loss_err <= TRAIN_LOSS_RTOL,
+          f"train_reference: losses {lg} vs {lc}")
+
+    def leaves(t):
+        layer = t["layers"][0]
+        yield "embed", t["embed"]
+        yield "lm_head", t["lm_head"]
+        yield "final_norm", t["final_norm"]
+        for sub in ("attn", "ffn"):
+            for n, a in layer[sub].items():
+                yield n, a
+        yield "ln1", layer["ln1"]
+        yield "ln2", layer["ln2"]
+
+    start = dict(leaves(tree))
+    worst = 0.0
+    for (n, a), (_, c) in zip(leaves(pg), leaves(pc)):
+        moved = c.astype(np.float64) - start[n]
+        check(np.linalg.norm(moved) > 0, f"train_reference: {n} not moved")
+        err = float(np.linalg.norm(a - c) / np.linalg.norm(moved))
+        worst = max(worst, err)
+        check(err <= TRAIN_UPDATE_RTOL,
+              f"train_reference: {n} update error {err}")
+    emit("train_reference", model="llama3-8b reduced", steps=3,
+         compute_dtype="float32", n_microbatches=2, card_losses=lg,
+         cpu_losses=lc, max_loss_rel_err=loss_err,
+         loss_tolerance=TRAIN_LOSS_RTOL, max_update_rel_err=worst,
+         update_tolerance=TRAIN_UPDATE_RTOL,
+         card_flash_attention_fwd_launches=card_launches)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -791,8 +1109,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    builds = build_kernels(["lsh_hash", "mips_topk", "hamming_topk"],
-                           force=True)
+    builds = build_kernels(["lsh_hash", "mips_topk", "hamming_topk",
+                            "flash_attention"], force=True)
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=builds,
@@ -806,6 +1124,10 @@ def main() -> int:
     run_reference_check(quantized_scan=True)
     lsh_quant, ham_main, res_main, quant_deploy = run_hamming(rag_q,
                                                               questions)
+    del rag, rag_q
+    fa_main = run_flash_attention()
+    train_launches = run_train_path()
+    run_train_reference()
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -818,6 +1140,21 @@ def main() -> int:
                 "replaces": replaces, "launches": n_launches,
                 "ms": main.pop("kernel_ms"), **main,
                 "at_2_22": {k: deploy_case[k] for k in keys}, **more}
+
+    def fa_entry(case, n_launches, pass_):
+        t = case["timing"]
+        err = case["out_max_abs_err"] if pass_ == "fwd" \
+            else case["grad_max_abs_err"]
+        return {"name": f"flash_attention_{pass_}", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+                "launches": n_launches[f"flash_attention_{pass_}"],
+                "max_abs_err": err, "ms": t[f"{pass_}_ms"],
+                "plain_ms": t[f"{pass_}_plain_ms"],
+                "bound_ms": t[f"{pass_}_bound_ms"],
+                "bound_by": t[f"{pass_}_bound_by"],
+                "library_ms": t[f"{pass_}_library_ms"],
+                "shape": case["shape"]}
 
     print(json.dumps({"kernels": [
         # launches: the exact main path's; the quantized path's beside
@@ -840,6 +1177,9 @@ def main() -> int:
               res_main, quant_deploy["mips_rescore"],
               q_launches["mips_rescore"],
               source="src/repro_torch/csrc/mips_topk.cu"),
+        # launches: the training path's (5 steps)
+        *(fa_entry(fa_main, train_launches, pass_)
+          for pass_ in ("fwd", "bwd")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

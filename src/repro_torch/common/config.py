@@ -1,17 +1,23 @@
-"""EraRAG configuration (the only config family this package serves yet).
+"""Configurations: the EraRAG system config and the LM family.
 
 ``EraRAGConfig`` takes every field name of the JAX package's dataclass,
 because snapshots carry the config as a plain dict (``EraGraph.
 state_dict()["cfg"]``) and ``EraRAG.from_state`` rebuilds it with
 ``EraRAGConfig(**cfg)``.  Fields whose subsystem is not ported yet
-(sharding, lifecycle, quantized scan, query cache, ingest) are accepted
-and validated identically; the components that would read them raise
+(sharding, lifecycle, query cache, ingest) are accepted and validated
+identically; the components that would read them raise
 ``NotImplementedError`` when a non-default value asks for them.
+
+``ShapeSpec``, ``ArchConfig``, ``MoEConfig`` and ``LMConfig`` carry
+every field of the JAX package's classes, so a config converts field by
+field.  Only dense LMs run here: a ``moe`` config builds, and the model
+raises ``not_ported`` for it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -117,3 +123,127 @@ class EraRAGConfig:
         lo = max(1, int(round(mid - delta)))
         hi = max(lo, int(round(mid + delta)))
         return dataclasses.replace(self, s_min=lo, s_max=hi)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell (the LM fields are the ones used here)."""
+
+    name: str
+    kind: str  # training | inference-prefill | inference-decode |
+    # long-context-decode | full-batch | sampled-training |
+    # full-batch-large | batched-small-graphs | online-inference |
+    # offline-scoring | retrieval-scoring
+    # LM fields
+    seq_len: int = 0
+    global_batch: int = 0
+    # GNN fields
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    graph_batch: int = 0
+    # RecSys fields
+    batch: int = 0
+    n_candidates: int = 0
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """Base class for the architecture configs."""
+
+    name: str = ""
+    family: str = ""  # lm-dense | lm-moe | gnn | recsys
+    source: str = ""  # citation tag, e.g. "arXiv:2407.21783; unverified"
+    shapes: Tuple[ShapeSpec, ...] = ()
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.name}: unknown shape {name!r}; "
+                       f"have {[s.name for s in self.shapes]}")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 1
+    n_shared: int = 0
+    d_ff_expert: int = 0           # per-expert FFN width
+    router_aux_coef: float = 0.01  # load-balance aux loss
+    capacity_factor: float = 1.25  # dispatch capacity per expert
+
+
+@dataclass(frozen=True)
+class LMConfig(ArchConfig):
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 0          # derived when 0: d_model // n_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False   # qwen2 uses attention bias
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    # apply MoE every k-th layer (1 = all)
+    moe_every: int = 1
+    max_seq_len: int = 8192
+
+    def __post_init__(self):
+        if self.d_head == 0 and self.n_heads:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    def param_count(self) -> int:
+        """Total parameter count (embedding + per-layer + head)."""
+        d, h = self.d_model, self.d_head
+        emb = self.vocab_size * d
+        attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) \
+            + (self.n_heads * h) * d
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * h
+        norms = 2 * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+            return emb + self.n_layers * (attn + ffn + norms) + head + d
+        m = self.moe
+        n_moe = self.n_layers // self.moe_every
+        n_dense = self.n_layers - n_moe
+        routed = m.n_experts * 3 * d * m.d_ff_expert
+        shared = m.n_shared * 3 * d * m.d_ff_expert
+        router = d * m.n_experts
+        moe_ffn = routed + shared + router
+        dense_ffn = 3 * d * self.d_ff
+        total = emb + head + d
+        total += n_moe * (attn + moe_ffn + norms)
+        total += n_dense * (attn + dense_ffn + norms)
+        return total
+
+    def reduced(self) -> "LMConfig":
+        kw = dict(
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_head=16,
+            d_ff=128,
+            vocab_size=256,
+            max_seq_len=128,
+        )
+        if self.moe is not None:
+            kw["moe"] = MoEConfig(
+                n_experts=4,
+                top_k=min(self.moe.top_k, 2),
+                n_shared=min(self.moe.n_shared, 1),
+                d_ff_expert=32,
+            )
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,176 @@
+"""Public attention op: the CUDA kernels for CUDA tensors, the plain
+version (with autograd) for CPU tensors.
+
+``flash_attention(q, k, v, *, causal, scale)`` is differentiable.  On
+the card its forward is ``fa_fwd_kernel`` and its backward the three
+backward kernels of ``csrc/flash_attention.cu`` (row sums D, then dK/dV
+per kv tile, then dQ per q tile), wrapped in one
+``torch.autograd.Function``; a CPU tensor goes to ``attention_ref`` and
+autograd differentiates that.  There is no fallback between the two.
+
+Causal attention with lq > lk is refused on both routes: rows before
+the key window then have every key masked, and the JAX package's three
+routes disagree on them (its Pallas kernel, ``attention_ref`` and
+``chunked_attention`` give three different values where the kernel's
+docstring promises 0; see PERF.md, "reference gaps").  The model only
+asks for lq == lk.
+
+Launch counters on the obs registry: ``kernels.flash_attention_fwd.
+launches`` (one per forward launch) and ``kernels.flash_attention_bwd.
+launches`` (one per backward call, which launches the three backward
+kernels in order on the current stream).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.common import check_launch, load_kernel, \
+    stream_ptr
+from repro_torch.kernels.flash_attention import ref
+from repro_torch.obs.metrics import global_registry
+
+HEAD_DIMS = (16, 32, 64, 128)     # d the CUDA kernels take
+DTYPES = (torch.bfloat16, torch.float32)
+
+_FWD_LAUNCHES = global_registry().counter(
+    "kernels.flash_attention_fwd.launches")
+_BWD_LAUNCHES = global_registry().counter(
+    "kernels.flash_attention_bwd.launches")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_fwd_launch": (
+        [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P], _I),
+    "flash_attention_bwd_launch": (
+        [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _I, _P], _I),
+}
+
+
+def reset_launch_count() -> None:
+    _FWD_LAUNCHES.reset()
+    _BWD_LAUNCHES.reset()
+
+
+def launch_count() -> int:
+    """Forward kernel launches since the last reset."""
+    return _FWD_LAUNCHES.count
+
+
+def bwd_launch_count() -> int:
+    """Backward calls (each launches the three backward kernels) since
+    the last reset."""
+    return _BWD_LAUNCHES.count
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"expected q (b, hq, lq, d) and k, v "
+                         f"(b, hkv, lk, d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv "
+                         f"heads {k.shape[1]}")
+    if causal and q.shape[2] > k.shape[2]:
+        raise ValueError(
+            f"causal attention needs lq <= lk, got lq={q.shape[2]}, "
+            f"lk={k.shape[2]}: rows before the key window have every key "
+            f"masked, where the JAX package's routes disagree (reference "
+            f"gap 2 in PERF.md)")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"inputs on {q.device}, {k.device} and "
+                         f"{v.device}")
+
+
+def _check_kernel_inputs(*ts: torch.Tensor) -> None:
+    d = ts[0].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernels take d in {HEAD_DIMS}, "
+                         f"got {d}")
+    if ts[0].dtype not in DTYPES or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"flash_attention kernels take one dtype of "
+                        f"{DTYPES}, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention kernels take contiguous inputs")
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    return float(scale if scale is not None else d ** -0.5)
+
+
+def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool,
+                             scale: Optional[float] = None):
+    """Launch the forward kernel: (o like q, lse (b, hq, lq) fp32)."""
+    _check_kernel_inputs(q, k, v)
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    lib = load_kernel("flash_attention", _SIGNATURES)
+    err = lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, hq, hkv, lq, lk, d, _scale(d, scale),
+        int(causal), int(q.dtype == torch.bfloat16), stream_ptr(q.device))
+    check_launch(lib, "flash_attention", err)
+    _FWD_LAUNCHES.inc()
+    return o, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
+                             scale: Optional[float] = None):
+    """Launch the backward kernels: (dq, dk, dv) like (q, k, v)."""
+    _check_kernel_inputs(q, k, v, o, do)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("flash_attention backward takes a contiguous "
+                        "fp32 lse")
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    lib = load_kernel("flash_attention", _SIGNATURES)
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, lq, lk, d,
+        _scale(d, scale), int(causal), int(q.dtype == torch.bfloat16),
+        stream_ptr(q.device))
+    check_launch(lib, "flash_attention", err)
+    _BWD_LAUNCHES.inc()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernels as one differentiable op (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        o, lse = flash_attention_fwd_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, hq, lq, d); k, v: (b, hkv, lk, d) -> (b, hq, lq, d) in q's
+    dtype, differentiable in q, k and v."""
+    _check(q, k, v, causal)
+    if q.device.type == "cuda":
+        return FlashAttention.apply(q, k, v, causal, scale)
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    raise ValueError(f"flash_attention: no route for device {q.device}")

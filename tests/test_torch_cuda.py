@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (which ``test_torch_lsh_hash.py``, ``test_torch_mips_topk.py``,
-``test_torch_hamming_topk.py`` and ``test_torch_quantized_scan.py`` hold
+``test_torch_hamming_topk.py``, ``test_torch_quantized_scan.py``,
+``test_torch_flash_attention.py`` and ``test_torch_train.py`` hold
 against the JAX package on the CPU).
 
 Every test here carries the ``cuda`` marker and skips without a card:
@@ -23,6 +24,9 @@ from repro_torch.kernels.hamming_topk import ops as ham_ops
 from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
 from repro_torch.kernels.lsh_hash import ops as lsh_ops
 from repro_torch.kernels.mips_topk import ops as mips_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_grads_ref, \
+    attention_lse_ref, attention_ref
 from repro_torch.kernels.quantized_scan import ops as quant_ops
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +230,127 @@ def _quickstart_card_vs_cpu(cuda, quantized_scan):
             np.testing.assert_allclose([h.score for h in a.hits],
                                        [h.score for h in b.hits],
                                        rtol=0, atol=SCORE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward and backward kernels against the plain version
+# ---------------------------------------------------------------------------
+# |out error| <= out_abs + out_rel * |plain out|.  The kernels and the
+# plain version (fp32 cuBLAS products) sum in other orders, ~1e-7 of the
+# summed terms apart (out_abs); bf16 outputs round those fp32 values, so
+# one may land one bf16 step apart (out_rel = 2^-7), and the kernels'
+# backward reads the bf16 output for D = rowsum(dO * O) where the plain
+# autograd keeps it in fp32.
+FA_TOL = {torch.float32: {"out_abs": 2e-5, "out_rel": 0.0, "lse": 2e-5,
+                          "grad": 1e-5},
+          torch.bfloat16: {"out_abs": 2e-5, "out_rel": 2.0 ** -7,
+                           "lse": 2e-5, "grad": 1e-2}}
+
+
+def _attn_inputs(b, hq, hkv, lq, lk, d, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dtype).to(device)
+                   for shape in ((b, hq, lq, d), (b, hkv, lk, d),
+                                 (b, hkv, lk, d), (b, hq, lq, d)))
+    return q, k, v, do
+
+
+def _rel_fro(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) /
+                 max(float(torch.linalg.norm(want)), 1e-30))
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal,dtype", [
+    (1, 1, 1, 1, 1, 16, True, torch.float32),
+    (2, 4, 4, 37, 37, 16, True, torch.float32),       # group 1, odd l
+    (1, 8, 2, 65, 130, 32, True, torch.float32),      # lq < lk causal
+    (2, 8, 1, 100, 77, 64, False, torch.float32),     # group 8, lq > lk
+    (1, 4, 1, 129, 129, 128, True, torch.float32),    # group 4
+    (1, 8, 2, 63, 200, 128, False, torch.float32),
+    (2, 8, 2, 256, 256, 128, True, torch.bfloat16),
+    (1, 4, 4, 70, 91, 64, True, torch.bfloat16),
+])
+def test_flash_attention_kernels_match_plain(cuda, b, hq, hkv, lq, lk, d,
+                                             causal, dtype):
+    q, k, v, do = _attn_inputs(b, hq, hkv, lq, lk, d, dtype, cuda,
+                               seed=lq + lk + d)
+    tol = FA_TOL[dtype]
+    before = fa_ops.launch_count()
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, causal)
+    assert fa_ops.launch_count() == before + 1
+    want = attention_ref(q, k, v, causal=causal).float()
+    assert o.dtype == dtype and o.shape == q.shape
+    diff = (o.float() - want).abs()
+    assert bool((diff <= tol["out_abs"] + tol["out_rel"] * want.abs()).all())
+    want_lse = attention_lse_ref(q, k, causal=causal)
+    assert float((lse - want_lse).abs().max()) <= tol["lse"]
+
+    before = fa_ops.bwd_launch_count()
+    grads = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert fa_ops.bwd_launch_count() == before + 1
+    for got, ref_g in zip(grads, attention_grads_ref(q, k, v, do,
+                                                     causal=causal)):
+        assert got.dtype == ref_g.dtype and got.shape == ref_g.shape
+        assert _rel_fro(got, ref_g) <= tol["grad"]
+
+
+def test_flash_attention_autograd_on_card(cuda):
+    q, k, v, do = _attn_inputs(2, 8, 2, 96, 96, 64, torch.float32, cuda, 5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    want = attention_grads_ref(q, k, v, do, causal=True)
+    for leaf, ref_g in zip(leaves, want):
+        assert _rel_fro(leaf.grad, ref_g) <= FA_TOL[torch.float32]["grad"]
+
+
+def test_flash_attention_backward_is_deterministic(cuda):
+    q, k, v, do = _attn_inputs(1, 8, 2, 300, 300, 128, torch.bfloat16,
+                               cuda, 7)
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, True)
+    first = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    second = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(o, fa_ops.flash_attention_fwd_cuda(q, k, v, True)[0])
+
+
+def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _attn_inputs(1, 2, 1, 8, 8, 48, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="d in"):
+        fa_ops.flash_attention(q, k, v)
+    q, k, v, _ = _attn_inputs(1, 2, 1, 9, 8, 16, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="lq <= lk"):
+        fa_ops.flash_attention(q, k, v, causal=True)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_fwd_cuda(q.half(), k.half(), v.half(), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention_fwd_cuda(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v, False)
+
+
+def test_lm_loss_and_grads_on_card_match_cpu(cuda):
+    from repro_torch.configs.llama3_8b import llama3_8b
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from repro_torch.models.transformer import init_params, loss_fn
+
+    cfg = llama3_8b().reduced()
+    tree = params_to_numpy(init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = synthetic_lm_batches(cfg.vocab_size, 2, 40, seed=1)(0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = params_from_numpy(tree, cfg, device=dev)
+        loss, _ = loss_fn(model, batch, cfg, compute_dtype=torch.float32)
+        loss.backward()
+        out[dev.type] = loss.item(), params_to_numpy(model, grads=True)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    gg, gc = out["cuda"][1], out["cpu"][1]
+    pairs = [(gg["embed"], gc["embed"]), (gg["lm_head"], gc["lm_head"])]
+    for sub in ("attn", "ffn"):
+        pairs += [(gg["layers"][0][sub][n], gc["layers"][0][sub][n])
+                  for n in gc["layers"][0][sub]]
+    for a, b in pairs:
+        assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
