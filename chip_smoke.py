@@ -55,10 +55,12 @@ package.  Phases, each printing one JSON line:
                  plain version (``attention_ref`` and autograd through it):
                  output, logsumexp and dQ/dK/dV from a seeded dO at the
                  training slice's shape (b = 2, hq = 32, hkv = 8,
-                 l = 4096, d = 128, bf16, causal) and at small fp32 shapes
-                 (odd lengths, lq < lk causal, not causal, groups 1, 4
-                 and 8); two backward runs must agree bitwise.  Times
-                 beside the bound and beside
+                 l = 4096, d = 128, causal) and at small shapes (odd
+                 lengths, lq < lk causal, not causal, groups 1, 4 and 8,
+                 d 16 to 128, single rows), each in bf16 (the tensor-core
+                 kernels) and fp32 (the FMA kernels); two backward runs
+                 must agree bitwise.  Times at the training shape in both
+                 dtypes, beside the bound, TFLOP/s and
                  ``scaled_dot_product_attention`` (a yardstick only).
 8. ``train_path`` the LM training slice through the port's entry points
                  (``init_params`` -> ``run_training``/``make_train_step``
@@ -66,11 +68,14 @@ package.  Phases, each printing one JSON line:
                  5 AdamW steps of 2 sequences of 4096 tokens in 2
                  microbatches, bf16 compute, on one fixed batch.  Every
                  loss must be finite and the last below the first; both
-                 attention kernels must have launched and the plain
-                 attention never (counters set to 0 just before).
+                 attention passes must have launched, on the tensor-core
+                 route only, and the plain attention never (counters set
+                 to 0 just before).
 9. ``train_reference`` llama3-8b at ``reduced()``: 3 steps from the same
                  seeded weights on the card (kernels) and on the CPU
-                 (plain versions); losses and weights must agree.
+                 (plain versions); losses and weights must agree, and
+                 the card's fp32 attention must have run on the FMA
+                 kernels only.
 10. ``kernels``  one line listing every kernel with its numbers.
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
@@ -80,6 +85,7 @@ and the script exits non-zero; the last line of a passing run is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,6 +153,26 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 5) -> dict:
+    """Device milliseconds per call of each ``fa_*`` kernel that ``fn``
+    launches, from ``torch.profiler`` over ``reps`` calls after a
+    warm-up (empty if the profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"(fa_\w+?)<", e.key)
+        if name and e.device_time_total > 0:
+            out[name.group(1)] = out.get(name.group(1), 0.0) + \
+                e.device_time_total / reps / 1e3
+    return out
 
 
 def bound(n_bytes: float, n_flop: float,
@@ -885,17 +911,34 @@ def attention_case(b, hq, hkv, lq, lk, d, causal, dtype, seed,
     qo_bytes = es * b * hq * lq * d
     kv_bytes = es * b * hkv * lk * d
     lse_bytes = 4.0 * b * hq * lq
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     fwd_bound = bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes, 2 * flop,
-                      BF16_FLOP_PER_S)
+                      peak)
     bwd_bound = bound(5 * qo_bytes + 4 * kv_bytes + lse_bytes, 5 * flop,
-                      BF16_FLOP_PER_S)
+                      peak)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     lib_out = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+    fwd_ms = time_ms(lambda: ops.flash_attention_fwd_cuda(q, k, v, causal))
+    bwd_ms = time_ms(lambda: ops.flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                          do, causal))
+    # products the kernels issue: the bf16 route splits P (forward) and
+    # P and dS (backward) into two bf16 halves, and its backward computes
+    # S and dP in both the dK/dV and the dQ kernel
+    issued = (3, 10) if dtype == torch.bfloat16 else (2, 7)
     case["timing"] = {
-        "fwd_ms": time_ms(lambda: ops.flash_attention_fwd_cuda(q, k, v,
-                                                               causal)),
-        "bwd_ms": time_ms(lambda: ops.flash_attention_bwd_cuda(
+        "kernel_route": ops.ROUTES[dtype],
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_tflop_per_s": 2 * flop / fwd_ms / 1e9,
+        "bwd_tflop_per_s": 5 * flop / bwd_ms / 1e9,
+        "fwd_issued_tflop_per_s": issued[0] * flop / fwd_ms / 1e9,
+        "bwd_issued_tflop_per_s": issued[1] * flop / bwd_ms / 1e9,
+        "fwd_bound_share": fwd_bound[0] / fwd_ms,
+        "bwd_bound_share": bwd_bound[0] / bwd_ms,
+        # which kernels ran, and the backward's split between them
+        "fwd_kernel_ms": kernel_ms(lambda: ops.flash_attention_fwd_cuda(
+            q, k, v, causal)),
+        "bwd_kernel_ms": kernel_ms(lambda: ops.flash_attention_bwd_cuda(
             q, k, v, o, lse, do, causal)),
         "fwd_plain_ms": time_ms(lambda: attention_ref(q, k, v,
                                                       causal=causal),
@@ -915,18 +958,35 @@ def attention_case(b, hq, hkv, lq, lk, d, causal, dtype, seed,
     return case
 
 
+SMALL_ATTENTION_SHAPES = (              # b, hq, hkv, lq, lk, d, causal
+    (1, 4, 4, 37, 37, 16, True),           # group 1, odd l
+    (2, 8, 2, 65, 130, 32, True),          # lq < lk, causal
+    (2, 8, 1, 100, 77, 64, False),         # group 8, lq > lk
+    (1, 4, 1, 129, 129, 128, True),        # group 4
+    (1, 8, 8, 63, 200, 128, False))        # not causal
+SMALL_BF16_ONLY = (
+    (1, 1, 1, 1, 1, 16, True),             # a single row
+    (1, 8, 1, 1, 33, 128, True),           # a single row, group 8
+    (1, 4, 2, 200, 200, 64, True),         # d 64 over several tiles
+    (2, 4, 4, 77, 77, 32, False))          # d 32, odd, not causal
+
+
 def run_flash_attention():
+    """bf16 (the tensor-core kernels) and fp32 (the FMA kernels), each at
+    the training shape, timed, and at small shapes."""
     ts = TRAIN_SHAPE
-    main = attention_case(ts["b"], ts["hq"], ts["hkv"], ts["l"], ts["l"],
-                          ts["d"], True, torch.bfloat16, seed=11, timed=True)
-    small = [attention_case(*shape, torch.float32, seed=20 + i)
-             for i, shape in enumerate((
-                 (1, 4, 4, 37, 37, 16, True),       # group 1, odd l
-                 (2, 8, 2, 65, 130, 32, True),      # lq < lk, causal
-                 (2, 8, 1, 100, 77, 64, False),     # group 8, lq > lk
-                 (1, 4, 1, 129, 129, 128, True),    # group 4
-                 (1, 8, 8, 63, 200, 128, False)))]  # not causal
-    emit("flash_attention", training_shape=main, small_fp32=small)
+    main = {dtype: attention_case(ts["b"], ts["hq"], ts["hkv"], ts["l"],
+                                  ts["l"], ts["d"], True, dtype, seed=11,
+                                  timed=True)
+            for dtype in (torch.bfloat16, torch.float32)}
+    small = {dtype: [attention_case(*shape, dtype, seed=20 + i)
+                     for i, shape in enumerate(shapes)]
+             for dtype, shapes in (
+                 (torch.float32, SMALL_ATTENTION_SHAPES),
+                 (torch.bfloat16, SMALL_ATTENTION_SHAPES + SMALL_BF16_ONLY))}
+    emit("flash_attention", training_shape=main[torch.bfloat16],
+         training_shape_fp32=main[torch.float32],
+         small_fp32=small[torch.float32], small_bf16=small[torch.bfloat16])
     return main
 
 
@@ -975,6 +1035,7 @@ def run_train_path():
     launches = {"flash_attention_fwd": fa_ops.launch_count(),
                 "flash_attention_bwd": fa_ops.bwd_launch_count(),
                 "attention_ref": fa_ref.call_count()}
+    routes = fa_ops.route_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del model
     torch.cuda.empty_cache()
@@ -998,6 +1059,12 @@ def run_train_path():
                                   f"path")
     check(launches["attention_ref"] == 0,
           "train_path: the plain attention ran on the card")
+    for pass_ in ("fwd", "bwd"):
+        check(routes[pass_]["tensor_core_bf16"] ==
+              launches[f"flash_attention_{pass_}"] and
+              routes[pass_]["fma_fp32"] == 0,
+              f"train_path: {pass_} launches by route {routes[pass_]}: the "
+              f"bf16 step must run the tensor-core kernels only")
     tokens = b * l
     step_s = statistics.median(res.step_s[1:])
     pairs = l * (l + 1) // 2
@@ -1017,6 +1084,7 @@ def run_train_path():
          tokens_per_s=tokens / step_s, model_flop_per_step=model_flop,
          model_flop_per_s=model_flop / step_s,
          max_memory_allocated_bytes=peak, launches=launches,
+         launches_by_route=routes,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          microbatch_attention_ms={"fwd": mb_fwd_ms, "bwd": mb_bwd_ms},
          attention_s_per_step=attn_s,
@@ -1056,6 +1124,11 @@ def run_train_reference():
         out[dev] = losses, params_to_numpy(model)
     card_launches = fa_ops.launch_count()
     check(card_launches > 0, "train_reference: the card ran no kernel")
+    routes = fa_ops.route_launch_counts()
+    check(all(routes[p]["fma_fp32"] > 0 and routes[p]["tensor_core_bf16"]
+              == 0 for p in routes),
+          f"train_reference: fp32 launches by route {routes}: the fp32 "
+          f"steps must run the FMA kernels only")
     (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
     check(loss_err <= TRAIN_LOSS_RTOL,
@@ -1086,7 +1159,9 @@ def run_train_reference():
          cpu_losses=lc, max_loss_rel_err=loss_err,
          loss_tolerance=TRAIN_LOSS_RTOL, max_update_rel_err=worst,
          update_tolerance=TRAIN_UPDATE_RTOL,
-         card_flash_attention_fwd_launches=card_launches)
+         card_flash_attention_fwd_launches=card_launches,
+         card_launches_by_route=routes)
+    return {f"flash_attention_{p}": routes[p]["fma_fp32"] for p in routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1127,7 +1202,7 @@ def main() -> int:
     del rag, rag_q
     fa_main = run_flash_attention()
     train_launches = run_train_path()
-    run_train_reference()
+    fp32_launches = run_train_reference()
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -1141,11 +1216,12 @@ def main() -> int:
                 "ms": main.pop("kernel_ms"), **main,
                 "at_2_22": {k: deploy_case[k] for k in keys}, **more}
 
-    def fa_entry(case, n_launches, pass_):
+    def fa_entry(case, n_launches, pass_, suffix=""):
         t = case["timing"]
         err = case["out_max_abs_err"] if pass_ == "fwd" \
             else case["grad_max_abs_err"]
-        return {"name": f"flash_attention_{pass_}", "route": "cuda",
+        return {"name": f"flash_attention_{pass_}{suffix}", "route": "cuda",
+                "kernel_route": t["kernel_route"],
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
                 "launches": n_launches[f"flash_attention_{pass_}"],
@@ -1154,6 +1230,8 @@ def main() -> int:
                 "bound_ms": t[f"{pass_}_bound_ms"],
                 "bound_by": t[f"{pass_}_bound_by"],
                 "library_ms": t[f"{pass_}_library_ms"],
+                "tflop_per_s": t[f"{pass_}_tflop_per_s"],
+                "bound_share": t[f"{pass_}_bound_share"],
                 "shape": case["shape"]}
 
     print(json.dumps({"kernels": [
@@ -1177,8 +1255,11 @@ def main() -> int:
               res_main, quant_deploy["mips_rescore"],
               q_launches["mips_rescore"],
               source="src/repro_torch/csrc/mips_topk.cu"),
-        # launches: the training path's (5 steps)
-        *(fa_entry(fa_main, train_launches, pass_)
+        # launches: the bf16 training path's (5 steps), on the tensor
+        # cores; the fp32 FMA kernels' from train_reference's card steps
+        *(fa_entry(fa_main[torch.bfloat16], train_launches, pass_)
+          for pass_ in ("fwd", "bwd")),
+        *(fa_entry(fa_main[torch.float32], fp32_launches, pass_, "_fp32")
           for pass_ in ("fwd", "bwd")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

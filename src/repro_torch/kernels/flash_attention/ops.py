@@ -2,11 +2,23 @@
 version (with autograd) for CPU tensors.
 
 ``flash_attention(q, k, v, *, causal, scale)`` is differentiable.  On
-the card its forward is ``fa_fwd_kernel`` and its backward the three
-backward kernels of ``csrc/flash_attention.cu`` (row sums D, then dK/dV
-per kv tile, then dQ per q tile), wrapped in one
-``torch.autograd.Function``; a CPU tensor goes to ``attention_ref`` and
-autograd differentiates that.  There is no fallback between the two.
+the card its forward and backward are kernels of
+``csrc/flash_attention.cu``, wrapped in one ``torch.autograd.Function``;
+a CPU tensor goes to ``attention_ref`` and autograd differentiates that.
+There is no fallback between the two.
+
+On the card the route follows the dtype:
+
+- **bf16 -> the tensor-core kernels**: bf16 products with fp32
+  accumulation, the forward on ``wgmma`` + TMA at d = 64 and 128 (on
+  ``mma.sync`` at d = 16 and 32), the backward on ``mma.sync``.  P and
+  dS enter their products as bf16 hi + lo halves (``ref.split_bf16``),
+  so the result keeps the fp32-inside contract;
+- **fp32 -> the FMA kernels** (every product an fp32 ``fmaf`` chain;
+  no TF32 anywhere).
+
+Either way the backward is D = rowsum(dO * O), then dK/dV per kv tile,
+then dQ per q tile, with no float atomics: two runs are bitwise equal.
 
 Causal attention with lq > lk is refused on both routes: rows before
 the key window then have every key masked, and the JAX package's three
@@ -17,8 +29,10 @@ asks for lq == lk.
 
 Launch counters on the obs registry: ``kernels.flash_attention_fwd.
 launches`` (one per forward launch) and ``kernels.flash_attention_bwd.
-launches`` (one per backward call, which launches the three backward
-kernels in order on the current stream).
+launches`` (one per backward call, which launches its kernels in order
+on the current stream); beside each, one counter per route,
+``kernels.flash_attention_{fwd,bwd}.<route>.launches`` with the routes
+of ``ROUTES``.
 """
 from __future__ import annotations
 
@@ -33,12 +47,18 @@ from repro_torch.kernels.flash_attention import ref
 from repro_torch.obs.metrics import global_registry
 
 HEAD_DIMS = (16, 32, 64, 128)     # d the CUDA kernels take
-DTYPES = (torch.bfloat16, torch.float32)
+# the dtypes the CUDA kernels take, and the kernels each goes to
+ROUTES = {torch.bfloat16: "tensor_core_bf16", torch.float32: "fma_fp32"}
+DTYPES = tuple(ROUTES)
 
 _FWD_LAUNCHES = global_registry().counter(
     "kernels.flash_attention_fwd.launches")
 _BWD_LAUNCHES = global_registry().counter(
     "kernels.flash_attention_bwd.launches")
+_ROUTE_LAUNCHES = {
+    (pass_, route): global_registry().counter(
+        f"kernels.flash_attention_{pass_}.{route}.launches")
+    for pass_ in ("fwd", "bwd") for route in ROUTES.values()}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -52,6 +72,8 @@ _SIGNATURES = {
 def reset_launch_count() -> None:
     _FWD_LAUNCHES.reset()
     _BWD_LAUNCHES.reset()
+    for c in _ROUTE_LAUNCHES.values():
+        c.reset()
 
 
 def launch_count() -> int:
@@ -63,6 +85,14 @@ def bwd_launch_count() -> int:
     """Backward calls (each launches the three backward kernels) since
     the last reset."""
     return _BWD_LAUNCHES.count
+
+
+def route_launch_counts() -> dict:
+    """``{"fwd": {route: n}, "bwd": {route: n}}`` since the last reset:
+    which kernels (``ROUTES``) the launches went to."""
+    return {pass_: {route: _ROUTE_LAUNCHES[pass_, route].count
+                    for route in ROUTES.values()}
+            for pass_ in ("fwd", "bwd")}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,6 +126,10 @@ def _check_kernel_inputs(*ts: torch.Tensor) -> None:
                         f"{DTYPES}, got {[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention kernels take contiguous inputs")
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                             for t in ts):
+        raise ValueError("the bf16 flash_attention kernels copy 16-byte "
+                         "chunks: inputs must start 16-byte aligned")
 
 
 def _scale(d: int, scale: Optional[float]) -> float:
@@ -118,6 +152,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         int(causal), int(q.dtype == torch.bfloat16), stream_ptr(q.device))
     check_launch(lib, "flash_attention", err)
     _FWD_LAUNCHES.inc()
+    _ROUTE_LAUNCHES["fwd", ROUTES[q.dtype]].inc()
     return o, lse
 
 
@@ -141,7 +176,14 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
         stream_ptr(q.device))
     check_launch(lib, "flash_attention", err)
     _BWD_LAUNCHES.inc()
+    _ROUTE_LAUNCHES["bwd", ROUTES[q.dtype]].inc()
     return dq, dk, dv
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class FlashAttention(torch.autograd.Function):
@@ -149,7 +191,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        q, k, v = (t.contiguous() for t in (q, k, v))
+        q, k, v = (_kernel_layout(t) for t in (q, k, v))
         o, lse = flash_attention_fwd_cuda(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
@@ -159,7 +201,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.scale)
+            q, k, v, o, lse, _kernel_layout(do), ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -76,6 +76,15 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
     return torch.logsumexp(s, dim=-1)
 
 
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x ~ hi + lo`` with ``hi = bf16(x)`` and ``lo = bf16(x - hi)``,
+    both bf16 (round to nearest even).  The tensor-core kernels split
+    their fp32 operands P and dS so before a bf16 product: ``hi + lo``
+    is within about 2^-17 |x| of x, where ``hi`` alone is within 2^-9."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(x.dtype)).to(torch.bfloat16)
+
+
 def attention_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = False,
                         scale: Optional[float] = None

@@ -270,6 +270,15 @@ def _rel_fro(got, want):
     (1, 8, 2, 63, 200, 128, False, torch.float32),
     (2, 8, 2, 256, 256, 128, True, torch.bfloat16),
     (1, 4, 4, 70, 91, 64, True, torch.bfloat16),
+    # bf16, the tensor-core route: every d, odd lengths, lq < lk causal,
+    # group 8 with lq > lk not causal, single rows
+    (1, 1, 1, 1, 1, 16, True, torch.bfloat16),
+    (2, 4, 4, 37, 37, 16, True, torch.bfloat16),
+    (1, 8, 2, 65, 130, 32, True, torch.bfloat16),
+    (2, 8, 1, 100, 77, 64, False, torch.bfloat16),
+    (1, 4, 1, 129, 129, 128, True, torch.bfloat16),
+    (1, 8, 2, 63, 200, 128, False, torch.bfloat16),
+    (1, 8, 1, 1, 33, 128, True, torch.bfloat16),
 ])
 def test_flash_attention_kernels_match_plain(cuda, b, hq, hkv, lq, lk, d,
                                              causal, dtype):
@@ -314,6 +323,41 @@ def test_flash_attention_backward_is_deterministic(cuda):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     assert torch.equal(o, fa_ops.flash_attention_fwd_cuda(q, k, v, True)[0])
+
+
+def test_flash_attention_bf16_backward_is_deterministic_when_ragged(cuda):
+    q, k, v, do = _attn_inputs(2, 8, 1, 77, 131, 64, torch.bfloat16, cuda,
+                               9)
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, False)
+    first = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, False)
+    second = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "tensor_core_bf16"), (torch.float32, "fma_fp32")])
+def test_flash_attention_route_follows_the_dtype(cuda, dtype, route):
+    q, k, v, do = _attn_inputs(1, 4, 2, 64, 64, 128, dtype, cuda, 3)
+    fa_ops.reset_launch_count()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa_ops.flash_attention(*leaves, causal=True).backward(do)
+    counts = fa_ops.route_launch_counts()
+    for pass_ in ("fwd", "bwd"):
+        assert counts[pass_] == {r: int(r == route)
+                                 for r in fa_ops.ROUTES.values()}
+
+
+def test_flash_attention_bf16_inputs_must_be_16_byte_aligned(cuda):
+    q, k, v, do = _attn_inputs(1, 4, 2, 40, 40, 64, torch.bfloat16, cuda, 4)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)            # 2 bytes past alignment
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.flash_attention_fwd_cuda(shifted, k, v, True)
+    want = fa_ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(fa_ops.flash_attention(shifted, k, v, causal=True),
+                       want)
 
 
 def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):

@@ -18,7 +18,7 @@ from repro.kernels.flash_attention.ops import chunked_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_grads_ref, \
-    attention_lse_ref, attention_ref, call_count
+    attention_lse_ref, attention_ref, call_count, split_bf16
 
 F32_TOL = 1e-5      # fp32 on both sides; sums in other orders
 # bf16 inputs: the port and the Pallas kernel both widen to fp32 inside
@@ -143,3 +143,87 @@ def test_cpu_route_is_the_plain_version():
     out = ops.flash_attention(q, k, v, causal=True)
     assert call_count() == before + 1 and ops.launch_count() == launches
     assert torch.equal(out, attention_ref(q, k, v, causal=True))
+
+
+# The card's bf16 output bound (FA_TOL in tests/test_torch_cuda.py and
+# chip_smoke.py): |kernel - plain| <= OUT_ABS + OUT_REL * |plain|.
+OUT_ABS, OUT_REL = 2e-5, 2.0 ** -7
+
+
+def _pv_as_the_kernels(q, k, v, causal, split):
+    """bf16 attention as the tensor-core forward computes it: exact
+    bf16 products of q k^T summed in fp32, P = exp(S - rowmax) in fp32,
+    then P V as bf16 products, P split into hi + lo (or rounded once),
+    divided by the row sum and rounded to bf16."""
+    group = q.shape[1] // k.shape[1]
+    d = q.shape[-1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        lq, lk = q.shape[2], k.shape[2]
+        visible = torch.arange(lk)[None, :] <= \
+            torch.arange(lq)[:, None] + (lk - lq)
+        s = torch.where(visible, s, torch.full_like(s, -1.0e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    hi, lo = split_bf16(p)
+    pv = hi.float() @ vf
+    if split:
+        pv = pv + lo.float() @ vf
+    return (pv / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal,seed,cancel", [
+    (1, 4, 2, 64, 64, 32, False, 0, True),      # outputs cancel toward 0
+    (2, 4, 2, 37, 53, 16, True, 1, True),       # cancel, lq < lk causal
+    (1, 2, 1, 1, 40, 32, True, 3, True),        # cancel, a single row
+    (1, 8, 2, 48, 48, 64, True, 2, False),      # peaked softmax (q x 2)
+])
+def test_bf16_split_of_p_meets_the_card_bound(b, hq, hkv, lq, lk, d, causal,
+                                              seed, cancel):
+    """The precision design of the tensor-core kernels: P enters P V as
+    bf16 hi + lo and meets the bf16 output bound against the JAX
+    ``attention_ref``; P rounded once to bf16 does not."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, lq, d)) * (1.0 if cancel else 2.0)
+    k = rng.standard_normal((b, hkv, lk, d))
+    if cancel:      # v = +-u (times 1 + 1 %): outputs near 0
+        sign = np.where(np.arange(lk) % 2 == 0, 1.0, -1.0)
+        v = rng.standard_normal((b, hkv, 1, d)) * sign[None, None, :, None] \
+            * (1 + 0.01 * rng.standard_normal((b, hkv, lk, 1)))
+    else:
+        v = rng.standard_normal((b, hkv, lk, d))
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+               for a in (q, k, v))
+    want = np.asarray(jax_ref(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        causal=causal).astype(jnp.float32))
+    bound = OUT_ABS + OUT_REL * np.abs(want)
+    split = _pv_as_the_kernels(q, k, v, causal, split=True).float().numpy()
+    once = _pv_as_the_kernels(q, k, v, causal, split=False).float().numpy()
+    assert (np.abs(split - want) <= bound).all()
+    assert (np.abs(once - want) > bound).any()
+
+
+def test_split_bf16_residual():
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, 4096).astype(np.float32))
+    hi, lo = split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -16 * x.double().abs()).all())
+    assert float((hi.double() - x.double()).abs().max()) > 2.0 ** -12
+
+
+def test_cpu_route_launches_no_kernel_route():
+    """The route table names one kernel route per dtype; the CPU route
+    runs the plain version and counts on neither."""
+    assert ops.ROUTES == {torch.bfloat16: "tensor_core_bf16",
+                          torch.float32: "fma_fp32"}
+    ops.reset_launch_count()
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _inputs(1, 2, 1, 8, 8, 16, 2))
+    ops.flash_attention(q, k, v, causal=True).sum().backward()
+    assert ops.route_launch_counts() == {
+        p: {r: 0 for r in ops.ROUTES.values()} for p in ("fwd", "bwd")}
