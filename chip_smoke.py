@@ -25,8 +25,10 @@ package.  Phases, each printing one JSON line:
                  groups of 64 hyperplanes) and at n = 2^22 rows.
 4. ``mips_topk`` ``flagged_mips_topk`` through the kernel against its
                  plain version at the main path's shape (the real store
-                 buffer) and at n = 2^22 rows x (256 + 3), b = 64, k = 8;
-                 b = 1 against b = 64 must agree bitwise.
+                 buffer) and at n = 2^22 rows x (256 + 3), b = 64 and
+                 b = 1, k = 8; b = 1 against b = 64 must agree bitwise.
+                 Times beside the bound, TFLOP/s, the bound share and
+                 each kernel's device-only time.
 5. ``quantized_path`` the same corpus, build, growth rounds and questions
                  through ``EraRAG`` with ``quantized_scan=True``, the
                  counters set to 0 just before and read just after:
@@ -155,10 +157,16 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 5) -> dict:
-    """Device milliseconds per call of each ``fa_*`` kernel that ``fn``
-    launches, from ``torch.profiler`` over ``reps`` calls after a
-    warm-up (empty if the profiler sees no device time)."""
+# the port's kernels by name: flash attention's fa_* and mips_topk.cu's
+# mips_* (templates end the name at "<", plain functions at "(")
+PORT_KERNEL = r"((?:fa|mips)_\w+?)[<(]"
+
+
+def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL) -> dict:
+    """Device milliseconds per call of each kernel whose name matches
+    ``pattern`` (its first group names it) that ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up (empty if the
+    profiler sees no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -168,11 +176,18 @@ def kernel_ms(fn, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = re.search(r"(fa_\w+?)<", e.key)
-        if name and e.device_time_total > 0:
+        name = re.search(pattern, e.key)
+        dev_us = getattr(e, "self_device_time_total", e.device_time_total)
+        if name and dev_us > 0:
             out[name.group(1)] = out.get(name.group(1), 0.0) + \
-                e.device_time_total / reps / 1e3
+                dev_us / reps / 1e3
     return out
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device milliseconds per call of everything ``fn`` launches (a
+    library call's kernels, whatever their names)."""
+    return sum(kernel_ms(fn, reps, pattern=r"^(.+)$").values())
 
 
 def bound(n_bytes: float, n_flop: float,
@@ -441,15 +456,30 @@ def mips_case(q, db, k, bias, label):
     plain_ms = time_ms(lambda: mips_topk_ref(q_aug, db, k), reps=5)
     library_ms = time_ms(lambda: torch.topk(q_aug @ db.T, k),
                          reps=5)
-    bound_ms, bound_by = bound(4.0 * (n * d + b * d) + 8.0 * b * k,
-                               2.0 * b * n * d)
+    flop = 2.0 * b * n * d
+    bound_ms, bound_by = bound(4.0 * (n * d + b * d) + 8.0 * b * k, flop)
+    # device-only: the scan and the merge (no host work of the wrapper)
+    kernels = kernel_ms(lambda: ops.mips_topk(q_aug, db, k))
+    kernel_device_ms = sum(kernels.values())
+    tile, tile_rows, rows_per_range, n_ranges = ops.mips_scan_grid(
+        b, n, torch.cuda.get_device_properties(0).multi_processor_count)
     return {"shape": {"b": b, "n": n, "d": d, "k": k},
+            "scan_grid": {"query_tile": tile, "tile_rows": tile_rows,
+                          "rows_per_range": rows_per_range,
+                          "n_ranges": n_ranges},
             "max_abs_err": max_err, "tolerance": SCORE_TOL,
             "ids_differing_at_near_ties": id_diffs,
             "batch_invariant": True, "kernel_ms": ms,
+            "kernel_device_ms": kernels, "device_ms": kernel_device_ms,
+            "tflop_per_s": flop / ms / 1e9,
+            "device_tflop_per_s": flop / kernel_device_ms / 1e9
+            if kernel_device_ms else None,
+            "bound_share": bound_ms / ms,
             "flagged_wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "library_ms": library_ms,
+            "library_device_ms": device_ms(
+                lambda: torch.topk(q_aug @ db.T, k)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def run_mips(rag, questions):
@@ -478,10 +508,13 @@ def run_mips(rag, questions):
         deploy[name] = mips_case(qd, db, 8,
                                  _filter_bias(layer_filter),
                                  f"2^22 {name}")
+    # one query: the byte-bound end of the scan (query 0, the duplicate)
+    deploy["b1_collapsed"] = mips_case(qd[:1].contiguous(), db, 8,
+                                       _filter_bias(None), "2^22 b=1")
     del db
     torch.cuda.empty_cache()
     emit("mips_topk", main_path=main, at_2_22=deploy)
-    return main, deploy["collapsed"]
+    return main, deploy["collapsed"], deploy["b1_collapsed"]
 
 
 # ---------------------------------------------------------------------------
@@ -1194,7 +1227,7 @@ def main() -> int:
     corpus, rag, questions, n_init, launches = run_main_path()
     run_reference_check()
     lsh_main, lsh_deploy = run_lsh(rag, n_init)
-    mips_main, mips_deploy = run_mips(rag, questions)
+    mips_main, mips_deploy, mips_b1 = run_mips(rag, questions)
     rag_q, q_launches = run_quantized_path(corpus, rag, questions)
     run_reference_check(quantized_scan=True)
     lsh_quant, ham_main, res_main, quant_deploy = run_hamming(rag_q,
@@ -1207,14 +1240,18 @@ def main() -> int:
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
 
+    mips_keys = keys + ("tflop_per_s", "bound_share", "device_ms",
+                        "kernel_device_ms", "library_device_ms")
+
     def entry(name, replaces, main_case, deploy_case, n_launches,
-              source=None, **more):
-        main = {k: main_case[k] for k in keys}
+              source=None, extra=(), **more):
+        main = {k: main_case[k] for k in keys + extra}
         return {"name": name, "route": "cuda",
                 "source": source or f"src/repro_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": n_launches,
                 "ms": main.pop("kernel_ms"), **main,
-                "at_2_22": {k: deploy_case[k] for k in keys}, **more}
+                "at_2_22": {k: deploy_case[k] for k in keys + extra},
+                **more}
 
     def fa_entry(case, n_launches, pass_, suffix=""):
         t = case["timing"]
@@ -1246,7 +1283,9 @@ def main() -> int:
                       "code_plane_bits_flipped",
                       "query_code_bits_flipped")}}),
         entry("mips_topk", "src/repro/kernels/mips_topk/kernel.py:98",
-              mips_main, mips_deploy, launches["mips_topk"]),
+              mips_main, mips_deploy, launches["mips_topk"],
+              extra=mips_keys[len(keys):],
+              at_2_22_b1={k: mips_b1[k] for k in mips_keys}),
         entry("hamming_topk", "src/repro/kernels/hamming_topk/kernel.py:57",
               ham_main, quant_deploy["hamming_topk"],
               q_launches["hamming_topk"]),

@@ -8,32 +8,66 @@
 // (score descending, row index ascending): vals (b, k) fp32 and idx
 // (b, k) int32.  The (b, n) score matrix is never written to memory.
 //
-// What bounds it on the H100: it reads n*d*4 bytes and does 2*b*n*d
-// fp32 FLOP on CUDA cores (no TF32: row ids must match the fp32
-// reference).  At b = 1 it is memory-bound; at the deployment batch
-// b = 64 the FLOP take longer than the bytes at the fp32 non-tensor
-// peak, so it is operation-bound.
+// The score chain.  A (query, row) score is acc = 0, then
+// acc = fmaf(db[r][f], q[j][f], acc) for f = 0 .. d-1 in that order,
+// with nothing padded.  The scan, whatever its variant, and the rescore
+// below both run exactly this chain, so b = 1 is bitwise b = 64 and a
+// rescored score is bitwise the scan's.  That rules out the tensor cores
+// (TF32 or split products) and any split of d.
 //
-// Design.  The TPU kernel walks the n-tiles in order on one core and
-// gets lowest-index-first ties from that order; on Hopper the blocks run
-// in any order, so the order is made explicit instead:
-//   1. mips_scan_kernel: one block per (16-query tile, n-range).  The
-//      block streams 128 rows at a time through shared memory in
-//      32-feature chunks (coalesced loads, queries read as broadcast
-//      float4s); each thread scores one row against the 16 queries, one
-//      fmaf per feature in the fixed order 0..d-1, so a (query, row)
-//      score is bitwise the same whatever the batch size, the tile or
-//      the range.  Scores go to shared memory, and each warp folds 4
-//      queries' scores into a per-query top-k list held across its lanes
-//      (entry e in lane e % 32), inserting only candidates that beat the
-//      list's k-th entry.  The list of every (query, range) is written
-//      to a small (b, ranges, k) scratch.
-//   2. mips_merge_kernel: one warp per query folds its ranges * k
-//      partial candidates into the final list by the same total order.
-// mips_rescore_kernel (entry mips_rescore_launch) is the same score loop
-// and merge over a per-query list of gathered rows: the exact rescore of
-// the two-stage quantized scan, which is XLA in the JAX package
-// (src/repro/kernels/quantized_scan/ops.py:229, in _two_stage).
+// What bounds it on the H100: it reads n*d*4 bytes and does 2*b*n*d fp32
+// FLOP on the FMA units.  At b = 64 the FLOP bound (67 TFLOP/s) is above
+// the byte bound (3.35 TB/s): 2.075 against 1.30 ms at n = 2^22, d = 259;
+// at b <= 16 the bytes bound it.  Three things keep it from those bounds:
+//   * the FMA loop: with both operands in registers this 8 x 16 tile
+//     issues at about 60 % of the fp32 peak (dependent-free FFMAs, 8 warps
+//     per SM); shared-memory operands cost a few points more;
+//   * the row stride: d = 259 gives 1036-byte rows, so a 16-feature chunk
+//     of a row is an unaligned 64-byte piece, and staging every row's
+//     piece per chunk reads DRAM in scattered pieces (about 2 TB/s when
+//     nothing else runs);
+//   * the two overlap only in part: both go through the SM's load/store
+//     path, and a chunk's barrier waits for its slowest warp.
+// PERF.md has the measured split.
+//
+// Design (mips_scan_kernel<M, N>, one block of 256 threads per SM):
+//   * One DB pass per batch.  A block holds 4N queries: 64 (N = 16) or
+//     16 (N = 4, for b <= 16, so b = 1 does not pay 64x the FMAs); larger
+//     b is cut into query tiles on blockIdx.y.  Each block walks a
+//     contiguous range of row tiles of 64M rows (512, or 256 where the
+//     512-row tiles would leave SMs idle).
+//   * Register tile: a warp is 8 lanes along the rows x 4 along the
+//     queries; a lane scores rows w*8M + 8i + lr (i < M) against queries
+//     16h + 4lq + e, M x N accumulators (128 at 8 x 16).  Per feature it
+//     reads M row scalars and N/4 query float4s from shared memory.
+//   * Staging: a ring of up to 4 stages of 16 features, filled with
+//     cp.async and one wait and one barrier per chunk.  Rows are copied as
+//     the 16-byte blocks that hold their features (cp.async.cg, zero fill
+//     past the chunk, an L2 prefetch hint of 256 bytes for the next
+//     chunks), into a row-major stage of pitch 20 floats; a row's features
+//     then start at its offset within its first block, which for this
+//     lane's rows is one value (tiles start at multiples of 4 rows and
+//     chunks at multiples of 16 features).  Pitch 20 puts 8 consecutive
+//     rows in 8 distinct 4-bank groups: the row reads are conflict-free
+//     for every d and any 4-byte-aligned base.  Queries are copied
+//     4 bytes a lane into a [feature][query] stage.
+//   * Fold, after a tile's last chunk: each lane queues (shared-memory
+//     atomics into a per-query queue) its scores that beat the query's
+//     k-th entry as of the last fold; on a block's first tile also not
+//     below a lower bound on it (the k-th best of 32 distinct rows' pairs:
+//     each warp's 4 best lane maxima), which holds where rows tie too.
+//     One compare of a query's best row clears its M rows at once.  The
+//     owning warp sorts a queue (bitonic, in registers), offers it best
+//     first to the query's list (kept in shared memory) and publishes the
+//     new k-th entry.  A full queue keeps the rest for another round.
+//   * mips_merge_kernel: one warp per query folds the per-range lists,
+//     skipping every candidate below the k-th best of the lists' first
+//     entries (each list is sorted, and its first entries are distinct
+//     rows).
+// mips_rescore_kernel (entry mips_rescore_launch) scores a per-query list
+// of gathered rows with the same chain and the same merge: the exact
+// rescore of the two-stage quantized scan, which is XLA in the JAX
+// package (src/repro/kernels/quantized_scan/ops.py:229, in _two_stage).
 // Rows past the end of a range or of the DB are never candidates;
 // unfilled list slots hold (-inf, INT_MAX), which every real score
 // beats — including the store's masked rows at MASK_BIAS = -3e30.
@@ -43,14 +77,46 @@
 
 namespace {
 
-constexpr int kThreads = 128;          // rows per tile, one per thread
+constexpr int kThreads = 128;          // rescore and merge blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 16;                // queries per block
-constexpr int kQPerWarp = kBQ / kWarps;
-constexpr int kDC = 32;                // features staged per chunk
+constexpr int kDC = 32;                // rescore: features per chunk
 constexpr int kMaxK = 64;
 constexpr int kNoIdx = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
+
+// the scan
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;  // each along the rows
+constexpr int kChunk = 16;             // features per stage
+constexpr int kBlocks = kChunk / 4 + 1;  // 16-byte blocks per staged row
+constexpr int kPitchR = 4 * kBlocks;   // floats per staged row, = 4 mod 8
+constexpr int kQueue = 32;             // candidate slots per query and round
+constexpr int kSmemMax = 232448;       // a block's shared memory on sm_90
+
+// A scan variant: each lane scores M rows x N queries (N a multiple of
+// 4); a warp is 8 lanes along the rows x 4 along the queries.
+template <int M, int N>
+struct Scan {
+  static constexpr int kM = M, kN = N;
+  static constexpr int kBQ = 4 * N;                // queries per block
+  static constexpr int kRows = kScanWarps * 8 * M; // rows per tile
+  static constexpr int kLists = kBQ / kScanWarps;  // queries per warp
+  // row-major row stage (pitch kPitchR), feature-major query stage
+  // ([feature][query]); a query pitch of 4 mod 8 floats keeps its 4-byte
+  // writes conflict-free
+  static constexpr int kPitchQ = kBQ + 4;
+  static constexpr int kStageFloats = kRows * kPitchR + kChunk * kPitchQ;
+  // per query: its top-k list, its candidate queue (which also holds the
+  // warps' best pairs before a first tile is queued), its lower bound
+  // pair, k-th entry and count
+  static constexpr int kFoldBytes = kBQ * (8 * kMaxK + 8 * kQueue + 20);
+  static constexpr int kStages =
+      (kSmemMax - kFoldBytes) / (4 * kStageFloats) < 4
+          ? (kSmemMax - kFoldBytes) / (4 * kStageFloats) : 4;
+  static constexpr int kSmemBytes = kStages * kStageFloats * 4 + kFoldBytes;
+  static_assert(kStages >= 2, "scan stages exceed shared memory");
+  static_assert(kPitchR % 8 == 4 && kPitchQ % 8 == 4, "pitch");
+};
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
@@ -108,20 +174,30 @@ struct WarpTopK {
     }
   }
 
-  // offer one candidate per lane (valid lanes only), lowest lane first
+  // offer one candidate per lane (valid lanes only), lowest lane first;
+  // (tv, ti) holds the list's k-th entry and is kept current, so a
+  // ballot that no lane wins costs one compare, and a candidate that the
+  // raised entry beats is never inserted
+  __device__ __forceinline__ void offer(float s, int idx, bool valid, int k,
+                                        int lane, float& tv, int& ti) {
+    unsigned m = __ballot_sync(kFull, valid && better(s, idx, tv, ti));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const float cv = __shfl_sync(kFull, s, src);
+      const int ci = __shfl_sync(kFull, idx, src);
+      insert(cv, ci, k, lane);
+      kth(k, tv, ti);
+      // drop the lanes the raised k-th entry now beats
+      m &= (m - 1) & __ballot_sync(kFull, valid && better(s, idx, tv, ti));
+    }
+  }
+
   __device__ __forceinline__ void offer(float s, int idx, bool valid, int k,
                                         int lane) {
     float tv;
     int ti;
     kth(k, tv, ti);
-    unsigned m = __ballot_sync(kFull, valid && better(s, idx, tv, ti));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cv = __shfl_sync(kFull, s, src);
-      const int ci = __shfl_sync(kFull, idx, src);
-      insert(cv, ci, k, lane);
-    }
+    offer(s, idx, valid, k, lane, tv, ti);
   }
 
   __device__ __forceinline__ void store(float* vals, int32_t* idx, int k,
@@ -137,113 +213,357 @@ struct WarpTopK {
   }
 };
 
-// The one score loop of both kernels: thread tid sums the score of tile
-// row tid against NQ queries (q0 .. q0 + NQ - 1, those >= b read as
-// zeros), one fmaf per feature in the order 0..d-1.  Tile row r is DB
-// row row_of(r), or a zero row where row_of(r) < 0.  Features are
-// staged through shared memory kDC at a time; the zero padding past d
-// adds fmaf(0, 0, acc) == acc.  Because the scan and the rescore both
-// run this chain, a rescored (query, row) score is bitwise the scan's.
-// Every thread of the block calls it (it holds barriers).
-template <int NQ, typename RowOf>
-__device__ __forceinline__ void score_tile(
-    const float* __restrict__ q, const float* __restrict__ db, int q0,
-    int b, int d, RowOf row_of, float (*rows_s)[kDC + 1],
-    float (*q_s)[NQ], float (&acc)[NQ]) {
-  const int tid = threadIdx.x;
+// Sorts one (v, i) pair per lane across each group of W lanes (lane l
+// is place l % W of its group) by (v desc, i asc): a bitonic network of
+// shfl_xor exchanges.
+template <int W>
+__device__ __forceinline__ void sort_lanes(float& v, int& i, int lane) {
 #pragma unroll
-  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
-  for (int d0 = 0; d0 < d; d0 += kDC) {
-    __syncthreads();
-#pragma unroll 8
-    for (int e = tid; e < kThreads * kDC; e += kThreads) {
-      const int r = e / kDC, c = e % kDC;
-      const int row = row_of(r), col = d0 + c;
-      rows_s[r][c] = (row >= 0 && col < d)
-                         ? db[static_cast<size_t>(row) * d + col] : 0.f;
-    }
-    for (int e = tid; e < kDC * NQ; e += kThreads) {
-      const int c = e / NQ, j = e % NQ;
-      const int qi = q0 + j, col = d0 + c;
-      q_s[c][j] = (qi < b && col < d)
-                      ? q[static_cast<size_t>(qi) * d + col] : 0.f;
-    }
-    __syncthreads();
+  for (int size = 2; size <= W; size <<= 1) {
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) {
-      const float x = rows_s[tid][c];
-      float qv[NQ];
-      if constexpr (NQ % 4 == 0) {  // broadcast float4 loads
-        const float4* q4 = reinterpret_cast<const float4*>(&q_s[c][0]);
-#pragma unroll
-        for (int j4 = 0; j4 < NQ / 4; ++j4) {
-          const float4 w = q4[j4];
-          qv[4 * j4 + 0] = w.x;
-          qv[4 * j4 + 1] = w.y;
-          qv[4 * j4 + 2] = w.z;
-          qv[4 * j4 + 3] = w.w;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) qv[j] = q_s[c][j];
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, v, stride);
+      const int oi = __shfl_xor_sync(kFull, i, stride);
+      // a block sorts descending where lane & size is 0: its lower lane
+      // keeps the better pair there, the worse one elsewhere
+      const bool keep_better =
+          ((lane & stride) == 0) == ((lane & size & (W - 1)) == 0);
+      if (keep_better == better(ov, oi, v, i)) {
+        v = ov;
+        i = oi;
       }
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[j] = fmaf(x, qv[j], acc[j]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void warp_sort(float& v, int& i, int lane) {
+  sort_lanes<32>(v, i, lane);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+// 16 bytes from a 16-byte-aligned src, of which the first src_bytes
+// are read and the rest zeroed; L2 fetches the 256 bytes around them,
+// which the next chunks of the row (and the next rows) read
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(s),
+      "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One feature of the chain: the lane's M rows (scalars, 8 rows apart in
+// the row-major stage) against its N queries (N/4 float4s of the
+// feature-major query stage).
+template <int M, int N>
+__device__ __forceinline__ void fma_feature(const float* __restrict__ rows,
+                                            const float* __restrict__ qs,
+                                            float (&acc)[M][N]) {
+  float x[M];
+  float4 w[N / 4];
+#pragma unroll
+  for (int i = 0; i < M; ++i) x[i] = rows[i * 8 * kPitchR];
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h)
+    w[h] = *reinterpret_cast<const float4*>(qs + h * 16);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h) {
+      acc[i][4 * h + 0] = fmaf(x[i], w[h].x, acc[i][4 * h + 0]);
+      acc[i][4 * h + 1] = fmaf(x[i], w[h].y, acc[i][4 * h + 1]);
+      acc[i][4 * h + 2] = fmaf(x[i], w[h].z, acc[i][4 * h + 2]);
+      acc[i][4 * h + 3] = fmaf(x[i], w[h].w, acc[i][4 * h + 3]);
+    }
+}
+
+// One block per (query tile, row range), walking the range's tiles.
+// Lane (lr, lq) of warp w scores tile rows w*8*M + 8i + lr (i < M)
+// against block queries 16h + 4lq + e (h < N/4, e < 4), query index
+// t = 4h + e.  The per-(query, range) lists go to a (b, n_ranges, k)
+// scratch.
+template <int M, int N>
+__global__ void __launch_bounds__(kScanThreads, 1)
 mips_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
                  float* __restrict__ part_v, int32_t* __restrict__ part_i,
                  int b, int n, int d, int k, int rows_per_range,
                  int n_ranges) {
-  __shared__ float rows_s[kThreads][kDC + 1];
-  __shared__ __align__(16) float q_s[kDC][kBQ];
-  __shared__ float scores_s[kBQ][kThreads];
+  using S = Scan<M, N>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(16) float smem[];
+  float* list_v = smem + kStages * S::kStageFloats;        // [kBQ][kMaxK]
+  int* list_i = reinterpret_cast<int*>(list_v + S::kBQ * kMaxK);
+  float* queue_v = reinterpret_cast<float*>(list_i + S::kBQ * kMaxK);
+  int* queue_i = reinterpret_cast<int*>(queue_v + S::kBQ * kQueue);
+  float* thr_v = reinterpret_cast<float*>(queue_i + S::kBQ * kQueue);
+  int* thr_i = reinterpret_cast<int*>(thr_v + S::kBQ);
+  int* cnt = thr_i + S::kBQ;
+  float* lower_v = reinterpret_cast<float*>(cnt + S::kBQ);
+  int* lower_i = reinterpret_cast<int*>(lower_v + S::kBQ);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.y * kBQ;
+  const int lr = lane & 7, lq = lane >> 3;
+  const int row_base = warp * 8 * M + lr;  // + 8i
+  const int q_base = lq * 4;
+  const int q0 = blockIdx.y * S::kBQ;
   const int range = blockIdx.x;
   const int r_begin = range * rows_per_range;
   const int r_end = min(n, r_begin + rows_per_range);
+  const int n_chunks = (d + kChunk - 1) / kChunk;
+  const int n_steps =
+      (r_end - r_begin + S::kRows - 1) / S::kRows * n_chunks;
+  // A staged row starts at the 16-byte block holding its first feature,
+  // so feature c of tile row r sits at r * kPitchR + o_r + c, with o_r
+  // the row start's float offset within its block.  Tiles start at
+  // multiples of 4 rows and chunks at multiples of 16 features, so o_r
+  // depends on r mod 4 only: every row of this lane shares one offset.
+  const int base_off = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(db) >> 2) & 3);
+  const int lane_off = (base_off + lr * (d & 3)) & 3;
 
-  WarpTopK lists[kQPerWarp];
-#pragma unroll
-  for (int jj = 0; jj < kQPerWarp; ++jj) lists[jj].init();
-
-  for (int t0 = r_begin; t0 < r_end; t0 += kThreads) {
-    float acc[kBQ];
-    score_tile<kBQ>(q, db, q0, b, d,
-                    [=](int r) { return t0 + r < r_end ? t0 + r : -1; },
-                    rows_s, q_s, acc);
-
-#pragma unroll
-    for (int j = 0; j < kBQ; ++j) scores_s[j][tid] = acc[j];
-    __syncthreads();
-
-#pragma unroll
-    for (int jj = 0; jj < kQPerWarp; ++jj) {
-      const int j = warp * kQPerWarp + jj;
-      if (q0 + j >= b) continue;  // warp-uniform
-      for (int base = 0; base < kThreads; base += 32) {
-        const int row = t0 + base + lane;
-        lists[jj].offer(scores_s[j][base + lane], row, row < r_end, k,
-                        lane);
-      }
-    }
-    // the next tile's first __syncthreads keeps scores_s from being
-    // overwritten before every warp has read it
+  for (int e = tid; e < S::kBQ * kMaxK; e += kScanThreads) {
+    list_v[e] = -INFINITY;
+    list_i[e] = kNoIdx;
+  }
+  for (int j = tid; j < S::kBQ; j += kScanThreads) {
+    thr_v[j] = -INFINITY;
+    thr_i[j] = kNoIdx;
+    cnt[j] = 0;
   }
 
+  // step s stages features [f0, f0 + len) of tile s / n_chunks: each
+  // row as the 16-byte blocks that hold them (consecutive threads take
+  // consecutive blocks; nothing past the last feature is read, and the
+  // o floats before the first share its aligned block, so they lie in
+  // the tensor's allocation), and
+  // the queries 4 x 8 features per warp instruction, 4 bytes a lane,
+  // written transposed.  Rows past the range and queries past b are not
+  // copied.
+  const int sub = lane & 3, feat = lane >> 2;
+  auto stage_load = [&](int s) {
+    if (s < n_steps) {
+      const int tile = s / n_chunks;
+      const int f0 = (s - tile * n_chunks) * kChunk;
+      const int len = min(kChunk, d - f0);
+      const int t0 = r_begin + tile * S::kRows;
+      float* rows_s = smem + (s % kStages) * S::kStageFloats;
+      float* q_s = rows_s + S::kRows * kPitchR;
+#pragma unroll 4
+      for (int e = tid; e < S::kRows * kBlocks; e += kScanThreads) {
+        const int r = e / kBlocks, blk = e - r * kBlocks;
+        if (t0 + r >= r_end) continue;
+        const float* first = db + static_cast<size_t>(t0 + r) * d + f0;
+        const int o = static_cast<int>(
+            (reinterpret_cast<uintptr_t>(first) >> 2) & 3);
+        const int left = o + len - 4 * blk;   // floats still needed
+        if (left > 0)
+          cp_async16(rows_s + r * kPitchR + 4 * blk,
+                     first - o + 4 * blk, 4 * min(4, left));
+      }
 #pragma unroll
-  for (int jj = 0; jj < kQPerWarp; ++jj) {
-    const int qi = q0 + warp * kQPerWarp + jj;
-    if (qi >= b) continue;
-    const size_t off = (static_cast<size_t>(qi) * n_ranges + range) * k;
-    lists[jj].store(part_v + off, part_i + off, k, lane);
+      for (int p = warp; p < S::kBQ * kChunk / 32; p += kScanWarps) {
+        const int j = 4 * (p / (kChunk / 8)) + sub;
+        const int c = 8 * (p % (kChunk / 8)) + feat;
+        if (c < len && q0 + j < b)
+          cp_async4(q_s + c * S::kPitchQ + j,
+                    q + static_cast<size_t>(q0 + j) * d + f0 + c);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+
+  float acc[M][N];
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) stage_load(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    // step s is visible to all; every thread is done with step s - 1,
+    // whose stage the next load refills
+    __syncthreads();
+    stage_load(s + kStages - 1);
+    const int tile = s / n_chunks;
+    const int chunk = s - tile * n_chunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int t = 0; t < N; ++t) acc[i][t] = 0.f;
+    }
+    const float* stage = smem + (s % kStages) * S::kStageFloats;
+    const float* rows_s = stage + row_base * kPitchR + lane_off;
+    const float* q_s = stage + S::kRows * kPitchR + q_base;
+    const int len = min(kChunk, d - chunk * kChunk);
+    if (len == kChunk) {
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c)
+        fma_feature(rows_s + c, q_s + c * S::kPitchQ, acc);
+    } else {
+#pragma unroll 1
+      for (int c = 0; c < len; ++c)
+        fma_feature(rows_s + c, q_s + c * S::kPitchQ, acc);
+    }
+    if (chunk != n_chunks - 1) continue;
+
+    // The tile is scored.  Each lane queues its scores that beat their
+    // query's k-th entry (as of the last fold) and, on a block's first
+    // tile, are not below a lower bound on it; the owning warps fold the
+    // queues, in rounds until no lane holds a pending score (a full queue
+    // leaves the rest for the next round, against the raised entry).
+    // Past the first tiles a lane rarely has a score to queue: one
+    // compare of a query's best row here clears its M rows.
+    const int t0 = r_begin + tile * S::kRows + row_base;
+    // The lower bound, a (score, row) pair: each warp offers the 4 best
+    // of its lanes' best rows per query (distinct rows), so for k <= 32
+    // the k-th best of those 32 pairs is at most the query's k-th entry
+    // after this tile.  It keeps a block's first tile from queueing every
+    // row, also where rows tie (the store's padding rows all score the
+    // mask bias).
+    constexpr int kTop = kQueue / kScanWarps;
+    static_assert(kTop * kScanWarps == 32, "one pair per lane");
+    const bool bounded = k <= 32 && tile == 0;
+    if (bounded) {
+#pragma unroll
+      for (int t = 0; t < N; ++t) {
+        float bv = -INFINITY;
+        int bi = kNoIdx;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const int row = t0 + 8 * i;
+          if (row < r_end && better(acc[i][t], row, bv, bi)) {
+            bv = acc[i][t];
+            bi = row;
+          }
+        }
+        sort_lanes<8>(bv, bi, lr);  // the query's 8 lanes of this warp
+        if (lr < kTop) {
+          const int e = (warp * kTop + lr) * S::kBQ + (t / 4) * 16 +
+                        q_base + t % 4;
+          queue_v[e] = bv;
+          queue_i[e] = bi;
+        }
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int u = 0; u < S::kLists; ++u) {
+        const int j = warp * S::kLists + u;
+        float v = queue_v[lane * S::kBQ + j];
+        int i = queue_i[lane * S::kBQ + j];
+        warp_sort(v, i, lane);
+        v = __shfl_sync(kFull, v, k - 1);
+        i = __shfl_sync(kFull, i, k - 1);
+        if (lane == 0) {
+          lower_v[j] = v;
+          lower_i[j] = i;
+        }
+      }
+      __syncthreads();
+    }
+    constexpr int kWords = (M * N + 31) / 32;
+    unsigned pend[kWords];  // bit i * N + t: score (i, t) still to queue
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) pend[w] = 0;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const int j = (t / 4) * 16 + q_base + t % 4;
+      const float lo = bounded ? fmaxf(lower_v[j], thr_v[j]) : thr_v[j];
+      float mx = acc[0][t];
+#pragma unroll
+      for (int i = 1; i < M; ++i) mx = fmaxf(mx, acc[i][t]);
+      if (q0 + j < b && mx >= lo) {
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          pend[(i * N + t) / 32] |= 1u << ((i * N + t) % 32);
+      }
+    }
+    for (;;) {
+      bool left = false;
+#pragma unroll
+      for (int t = 0; t < N; ++t) {
+        const int j = (t / 4) * 16 + q_base + t % 4;
+        const float tv = thr_v[j];
+        const int ti = thr_i[j];
+        const float lv = bounded ? lower_v[j] : -INFINITY;
+        const int li = bounded ? lower_i[j] : kNoIdx;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const int bit = i * N + t;
+          const unsigned mask = 1u << (bit % 32);
+          if (!(pend[bit / 32] & mask)) continue;
+          const int row = t0 + 8 * i;
+          // beats the k-th entry and is not below the bound pair
+          if (q0 + j < b && row < r_end && !better(lv, li, acc[i][t], row) &&
+              better(acc[i][t], row, tv, ti)) {
+            const int slot = atomicAdd(&cnt[j], 1);
+            if (slot >= kQueue) {
+              left = true;
+              continue;
+            }
+            queue_v[j * kQueue + slot] = acc[i][t];
+            queue_i[j * kQueue + slot] = row;
+          }
+          pend[bit / 32] &= ~mask;
+        }
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int u = 0; u < S::kLists; ++u) {
+        const int j = warp * S::kLists + u;
+        const int c = min(cnt[j], kQueue);
+        if (c == 0) continue;  // warp-uniform
+        WarpTopK list;
+        list.v0 = list_v[j * kMaxK + lane];
+        list.i0 = list_i[j * kMaxK + lane];
+        list.v1 = list_v[j * kMaxK + lane + 32];
+        list.i1 = list_i[j * kMaxK + lane + 32];
+        // best first: the list takes at most k of them, and the raised
+        // k-th entry turns the rest away in one ballot
+        float qv = lane < c ? queue_v[j * kQueue + lane] : -INFINITY;
+        int qi = lane < c ? queue_i[j * kQueue + lane] : kNoIdx;
+        warp_sort(qv, qi, lane);
+        list.offer(qv, qi, lane < c, k, lane);
+        list_v[j * kMaxK + lane] = list.v0;
+        list_i[j * kMaxK + lane] = list.i0;
+        list_v[j * kMaxK + lane + 32] = list.v1;
+        list_i[j * kMaxK + lane + 32] = list.i1;
+        float tv;
+        int ti;
+        list.kth(k, tv, ti);
+        if (lane == 0) {
+          thr_v[j] = tv;
+          thr_i[j] = ti;
+          cnt[j] = 0;
+        }
+      }
+      if (!__syncthreads_or(left)) break;
+    }
+  }
+
+  __syncthreads();
+  for (int e = tid; e < S::kBQ * kMaxK; e += kScanThreads) {
+    const int j = e / kMaxK, slot = e % kMaxK;
+    if (q0 + j >= b || slot >= k) continue;
+    const size_t off =
+        (static_cast<size_t>(q0 + j) * n_ranges + range) * k + slot;
+    part_v[off] = list_v[e];
+    part_i[off] = list_i[e];
   }
 }
 
@@ -257,26 +577,81 @@ mips_merge_kernel(const float* __restrict__ part_v,
   if (qi >= b) return;  // warp-uniform
   WarpTopK list;
   list.init();
+  float tv;
+  int ti;
+  list.kth(k, tv, ti);
   const float* pv = part_v + static_cast<size_t>(qi) * n_cand;
   const int32_t* pi = part_i + static_cast<size_t>(qi) * n_cand;
+  // The candidates are n_cand / k lists, each sorted best first and of
+  // distinct rows.  Lane l's best first entry among lists l, l + 32, ...
+  // is one row, so the k-th best over the lanes (k <= 32) is at most the
+  // final k-th score: a candidate below it is never offered.
+  float lo = -INFINITY;
+  if (k <= 32) {
+    float bv = -INFINITY;
+    int bi = kNoIdx;
+    for (int m = lane; m * k < n_cand; m += 32) {
+      if (better(pv[m * k], pi[m * k], bv, bi)) {
+        bv = pv[m * k];
+        bi = pi[m * k];
+      }
+    }
+    warp_sort(bv, bi, lane);
+    lo = __shfl_sync(kFull, bv, k - 1);
+  }
   for (int base = 0; base < n_cand; base += 32) {
     const int c = base + lane;
-    const bool valid = c < n_cand;
+    const bool valid = c < n_cand && pv[c] >= lo;
     list.offer(valid ? pv[c] : -INFINITY, valid ? pi[c] : kNoIdx, valid,
-               k, lane);
+               k, lane, tv, ti);
   }
   list.store(out_v + static_cast<size_t>(qi) * k,
              out_i + static_cast<size_t>(qi) * k, k, lane);
 }
 
+// The rescore's score loop: thread tid sums the score of tile row tid
+// against one query, the scan's chain (one fmaf per feature in the
+// order 0..d-1, nothing padded).  Tile row r is DB row row_of(r), or
+// unused where row_of(r) < 0.  Features are staged through shared
+// memory kDC at a time.  Every thread of the block calls it (it holds
+// barriers).
+template <typename RowOf>
+__device__ __forceinline__ float score_rows(const float* __restrict__ q,
+                                            const float* __restrict__ db,
+                                            int d, RowOf row_of,
+                                            float (*rows_s)[kDC + 1],
+                                            float* q_s) {
+  const int tid = threadIdx.x;
+  float acc = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kDC) {
+    const int len = min(kDC, d - d0);
+    __syncthreads();
+#pragma unroll 8
+    for (int e = tid; e < kThreads * kDC; e += kThreads) {
+      const int r = e / kDC, c = e % kDC;
+      const int row = row_of(r);
+      if (row >= 0 && c < len)
+        rows_s[r][c] = db[static_cast<size_t>(row) * d + d0 + c];
+    }
+    if (tid < len) q_s[tid] = q[d0 + tid];
+    __syncthreads();
+    if (len == kDC) {
+#pragma unroll
+      for (int c = 0; c < kDC; ++c) acc = fmaf(rows_s[tid][c], q_s[c], acc);
+    } else {
+      for (int c = 0; c < len; ++c) acc = fmaf(rows_s[tid][c], q_s[c], acc);
+    }
+  }
+  return acc;
+}
+
 // The rescore of the two-stage quantized scan: one block per (query,
 // range of that query's candidates).  The query's own candidate rows
-// (its index list, cand[qi]) go through score_tile, the scan's score
-// loop, so a (query, row) score here is bitwise the score
-// mips_scan_kernel computes for that row.  Each warp
-// keeps a top-k list over the rows it scores; the lists go to a
-// (b, ranges, 4, k) scratch that mips_merge_kernel folds.  Candidate
-// indices outside [0, n) are never scored.
+// (its index list, cand[qi]) go through score_rows, so a (query, row)
+// score here is bitwise the score mips_scan_kernel computes for that
+// row.  Each warp keeps a top-k list over the rows it scores; the lists
+// go to a (b, ranges, 4, k) scratch that mips_merge_kernel folds.
+// Candidate indices outside [0, n) are never scored.
 __global__ void __launch_bounds__(kThreads)
 mips_rescore_kernel(const float* __restrict__ q,
                     const float* __restrict__ db,
@@ -285,7 +660,7 @@ mips_rescore_kernel(const float* __restrict__ q,
                     int n, int d, int n_cand, int k, int cands_per_range,
                     int n_ranges) {
   __shared__ float rows_s[kThreads][kDC + 1];
-  __shared__ float q_s[kDC][1];
+  __shared__ float q_s[kDC];
   __shared__ int row_s[kThreads];
 
   const int tid = threadIdx.x;
@@ -296,6 +671,7 @@ mips_rescore_kernel(const float* __restrict__ q,
   const int p_begin = range * cands_per_range;
   const int p_end = min(n_cand, p_begin + cands_per_range);
   const int32_t* my_cand = cand + static_cast<size_t>(qi) * n_cand;
+  const float* my_q = q + static_cast<size_t>(qi) * d;
 
   WarpTopK list;
   list.init();
@@ -303,38 +679,87 @@ mips_rescore_kernel(const float* __restrict__ q,
     __syncthreads();
     int row = t0 + tid < p_end ? my_cand[t0 + tid] : -1;
     row_s[tid] = (row >= 0 && row < n) ? row : -1;
-    // score_tile's first barrier publishes row_s
-    float acc[1];
-    score_tile<1>(q, db, qi, qi + 1, d, [&](int r) { return row_s[r]; },
-                  rows_s, q_s, acc);
+    // score_rows's first barrier publishes row_s
+    const float acc = score_rows(my_q, db, d, [&](int r) { return row_s[r]; },
+                                 rows_s, q_s);
     row = row_s[tid];
-    list.offer(acc[0], row, row >= 0, k, lane);
+    list.offer(acc, row, row >= 0, k, lane);
   }
   const size_t off =
       ((static_cast<size_t>(qi) * n_ranges + range) * kWarps + warp) * k;
   list.store(part_v + off, part_i + off, k, lane);
 }
 
+template <class S>
+cudaError_t launch_scan(dim3 grid, cudaStream_t s, const float* q,
+                        const float* db, float* part_v, int32_t* part_i,
+                        int b, int n, int d, int k, int rows_per_range,
+                        int n_ranges) {
+  // the > 48 KB opt-in, once per variant and device
+  static unsigned long long sized = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(sized & bit)) {
+    err = cudaFuncSetAttribute(mips_scan_kernel<S::kM, S::kN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    sized |= bit;
+  }
+  grid.y = (b + S::kBQ - 1) / S::kBQ;
+  mips_scan_kernel<S::kM, S::kN><<<grid, kScanThreads, S::kSmemBytes, s>>>(
+      q, db, part_v, part_i, b, n, d, k, rows_per_range, n_ranges);
+  return cudaGetLastError();
+}
+
+// The scan variants by (queries per block, rows per tile): 512-row tiles
+// where they fill the card, 256-row tiles where they would leave SMs
+// idle.
+using ScanA = Scan<8, 16>;
+using ScanB = Scan<4, 16>;
+using ScanC = Scan<8, 4>;
+using ScanD = Scan<4, 4>;
+
 }  // namespace
 
 // part_v / part_i: (b, n_ranges, k) scratch; out_v / out_i: (b, k).
-// rows_per_range must be a multiple of 128 with
-// n_ranges == ceil(n / rows_per_range).
+// (query_tile, tile_rows) names a variant: (64, 512), (64, 256),
+// (16, 512) or (16, 256); rows_per_range must be a multiple of
+// tile_rows with n_ranges == ceil(n / rows_per_range).  q and db need
+// only the 4-byte alignment of any fp32 tensor.
 extern "C" int mips_topk_launch(const float* q, const float* db,
                                 float* part_v, int32_t* part_i,
                                 float* out_v, int32_t* out_i, int b, int n,
-                                int d, int k, int rows_per_range,
-                                int n_ranges, void* stream) {
-  if (b <= 0 || n <= 0 || d <= 0 || k < 1 || k > kMaxK || k > n ||
-      rows_per_range <= 0 || rows_per_range % kThreads != 0 ||
+                                int d, int k, int query_tile, int tile_rows,
+                                int rows_per_range, int n_ranges,
+                                void* stream) {
+  auto is = [&](auto variant) {
+    using S = decltype(variant);
+    return query_tile == S::kBQ && tile_rows == S::kRows;
+  };
+  const bool known = is(ScanA{}) || is(ScanB{}) || is(ScanC{}) || is(ScanD{});
+  if (b <= 0 || n <= 0 || d <= 0 || k < 1 || k > kMaxK || k > n || !known ||
+      rows_per_range <= 0 || rows_per_range % tile_rows != 0 ||
       n_ranges != (n + rows_per_range - 1) / rows_per_range) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 scan_grid(n_ranges, (b + kBQ - 1) / kBQ);
-  mips_scan_kernel<<<scan_grid, kThreads, 0, s>>>(
-      q, db, part_v, part_i, b, n, d, k, rows_per_range, n_ranges);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(n_ranges);
+  cudaError_t err;
+  if (is(ScanA{}))
+    err = launch_scan<ScanA>(grid, s, q, db, part_v, part_i, b, n, d, k,
+                                rows_per_range, n_ranges);
+  else if (is(ScanB{}))
+    err = launch_scan<ScanB>(grid, s, q, db, part_v, part_i, b, n, d, k,
+                                rows_per_range, n_ranges);
+  else if (is(ScanC{}))
+    err = launch_scan<ScanC>(grid, s, q, db, part_v, part_i, b, n, d, k,
+                                rows_per_range, n_ranges);
+  else
+    err = launch_scan<ScanD>(grid, s, q, db, part_v, part_i, b, n, d, k,
+                               rows_per_range, n_ranges);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 merge_grid((b + kWarps - 1) / kWarps);
   mips_merge_kernel<<<merge_grid, kThreads, 0, s>>>(

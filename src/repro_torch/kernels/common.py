@@ -1,6 +1,7 @@
-"""Shared kernel utilities: ``cdiv``, the scan grid (``scan_ranges``),
-the device resolver, and the builder/loader for the hand-written CUDA
-kernels under ``csrc/``.
+"""Shared kernel utilities: ``cdiv``, the scan grids (``scan_ranges``,
+``mips_scan_grid``), the card's SM count (``sm_count``), the device
+resolver, and the builder/loader for the hand-written CUDA kernels under
+``csrc/``.
 
 Build route: each ``csrc/<name>.cu`` is compiled on first use by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -34,10 +35,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
-# The scan grid shared by mips_topk, mips_rescore and hamming_topk
+# The scan grid shared by mips_rescore and hamming_topk
 SCAN_ROWS = 128         # rows per block tile (kThreads in the sources)
-SCAN_BQ = 16            # queries per block (kBQ in the sources)
+SCAN_BQ = 16            # queries per block (kBQ in hamming_topk.cu)
 _BLOCKS_PER_SM = 4      # scan blocks aimed at per SM when choosing ranges
+
+# The mips_topk scan's variants (csrc/mips_topk.cu), one block per SM:
+# queries per block, and rows per tile (the first where those tiles fill
+# the card, else the second)
+MIPS_QUERY_TILES = (16, 64)
+MIPS_TILE_ROWS = (512, 256)
+
+_SM_COUNTS: Dict[int, int] = {}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -54,6 +63,37 @@ def scan_ranges(b: int, n: int, n_sms: int, *,
                        cdiv(b, queries_per_block)))
     rows_per_range = cdiv(tiles, min(tiles, want)) * SCAN_ROWS
     return rows_per_range, cdiv(n, rows_per_range)
+
+
+def mips_scan_grid(b: int, n: int,
+                   n_sms: int) -> Tuple[int, int, int, int]:
+    """(query_tile, tile_rows, rows_per_range, n_ranges) of the
+    ``mips_topk`` scan: the narrowest query tile that holds b (larger b
+    is cut into tiles of 64); the variant's large row tile unless its
+    tiles would leave SMs idle; and about one block per SM over the
+    query tiles, each block a contiguous range of whole tiles that it
+    walks in order."""
+    tile = next((t for t in MIPS_QUERY_TILES if b <= t),
+                MIPS_QUERY_TILES[-1])
+    q_tiles = cdiv(b, tile)
+    large, small = MIPS_TILE_ROWS
+    tile_rows = large if cdiv(n, large) * q_tiles >= n_sms else small
+    tiles = cdiv(n, tile_rows)
+    want = max(1, n_sms // q_tiles)
+    rows_per_range = cdiv(tiles, min(tiles, want)) * tile_rows
+    return tile, tile_rows, rows_per_range, cdiv(n, rows_per_range)
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device (the property query
+    costs host time on every small call)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SM_COUNTS.get(index)
+    if n is None:
+        n = torch.cuda.get_device_properties(index).multi_processor_count
+        _SM_COUNTS[index] = n
+    return n
 
 
 def resolve_device(device=None) -> torch.device:

@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.common import check_launch, load_kernel, \
-    scan_ranges, stream_ptr
+    scan_ranges, sm_count, stream_ptr
 from repro_torch.kernels.hamming_topk import ref
 from repro_torch.obs.metrics import global_registry
 
@@ -57,8 +57,7 @@ def hamming_topk_cuda(qc: torch.Tensor, dbc: torch.Tensor,
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return dist, idx
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows_per_range, n_ranges = scan_ranges(b, n, n_sms)
+    rows_per_range, n_ranges = scan_ranges(b, n, sm_count(dev))
     # per-(query, range) distance histograms, turned into output
     # offsets in place; the threshold distance per query
     hist = torch.empty((b, n_ranges, 32 * w + 1), dtype=torch.int32,

@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.common import SCAN_ROWS, check_launch, \
-    load_kernel, scan_ranges, stream_ptr
+    load_kernel, mips_scan_grid, scan_ranges, sm_count, stream_ptr
 from repro_torch.kernels.mips_topk import ref
 from repro_torch.obs.metrics import global_registry
 
@@ -36,7 +36,7 @@ _RESCORE_LAUNCHES = global_registry().counter(
     "kernels.mips_rescore.launches")
 
 _SIGNATURES = {
-    "mips_topk_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "mips_topk_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                          + [ctypes.c_void_p], ctypes.c_int),
     "mips_rescore_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                             + [ctypes.c_void_p], ctypes.c_int),
@@ -78,16 +78,16 @@ def mips_topk_cuda(q: torch.Tensor, db: torch.Tensor,
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows_per_range, n_ranges = scan_ranges(b, n, n_sms)
+    tile, tile_rows, rows_per_range, n_ranges = mips_scan_grid(
+        b, n, sm_count(dev))
     part_v = torch.empty((b, n_ranges, k), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((b, n_ranges, k), dtype=torch.int32, device=dev)
     lib = load_kernel("mips_topk", _SIGNATURES)
     err = lib.mips_topk_launch(
         q.data_ptr(), db.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), b, n, d, k, rows_per_range,
-        n_ranges, stream_ptr(dev))
+        vals.data_ptr(), idx.data_ptr(), b, n, d, k, tile, tile_rows,
+        rows_per_range, n_ranges, stream_ptr(dev))
     check_launch(lib, "mips_topk", err)
     _LAUNCHES.inc()
     return vals, idx
@@ -131,8 +131,8 @@ def mips_rescore_cuda(q: torch.Tensor, db: torch.Tensor,
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_range, n_ranges = scan_ranges(b, c, n_sms, queries_per_block=1)
+    per_range, n_ranges = scan_ranges(b, c, sm_count(dev),
+                                      queries_per_block=1)
     part_v = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),
                          dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),

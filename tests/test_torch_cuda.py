@@ -20,6 +20,7 @@ from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.hamming_topk import ops as ham_ops
 from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
 from repro_torch.kernels.lsh_hash import ops as lsh_ops
@@ -106,6 +107,117 @@ def test_mips_kernel_matches_plain(cuda, b, n, d, k, bias):
                                             k, bias)
         assert torch.equal(v1, vals[j:j + 1])
         assert torch.equal(i1, idx[j:j + 1])
+
+
+def _unit_rows(rng, m, d):
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _assert_matches_plain(vals, idx, q, db, k):
+    """Scores within SCORE_TOL of the plain version; ids equal except at
+    a near-tie (a plain neighbour within SCORE_TOL, which the two
+    summation orders may swap)."""
+    pv, pi = mips_ops.mips_topk(q.cpu(), db.cpu(), min(k + 1, db.shape[0]))
+    vals, idx = vals.cpu(), idx.cpu()
+    assert float((vals - pv[:, :k]).abs().max()) <= SCORE_TOL
+    near = torch.zeros_like(pv, dtype=torch.bool)
+    close = (pv[:, 1:] - pv[:, :-1]).abs() <= SCORE_TOL
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert not ((idx != pi[:, :k]) & ~near[:, :k]).any()
+
+
+# b across the query tiles (16 and 64, larger b in tiles of 64); n one
+# below, at and one above a row tile (256 rows where 512-row tiles
+# would leave SMs idle) and, past 132 tiles, a range of two tiles (one
+# block per SM); d across the 16-feature stages and their tails; d = 256
+# and 260 stage rows that start on a 16-byte block, the odd d rows
+# that do not
+MIPS_TILING_EDGES = [                   # b, n, d, k
+    (1, 100, 259, 8),                   # n below one tile
+    (15, 255, 1, 1),                    # d = 1: every row +-1, all ties
+    (16, 256, 3, 8),                    # a tail chunk alone
+    (17, 257, 35, 64),                  # two chunks + 3
+    (63, 140 * 256 - 1, 256, 8),        # 256-row tiles, ranges of two
+    (64, 140 * 256, 259, 8),
+    (65, 140 * 256 + 1, 260, 64),       # a last range of one row
+    (130, 140 * 256 + 1, 259, 1),       # three query tiles
+    (1, 140 * 256, 259, 64),
+    (16, 1000, 260, 64),
+    (64, 140 * 512 + 1, 259, 8),        # 512-row tiles
+    (33, 140 * 512, 260, 64),
+    (1, 140 * 512 - 1, 259, 8),
+    (16, 140 * 512 + 1, 35, 64)]
+
+
+@pytest.mark.parametrize("b,n,d,k", MIPS_TILING_EDGES)
+def test_mips_scan_at_the_edges_of_its_tiling(cuda, b, n, d, k):
+    rng = np.random.default_rng(b + n + d + k)
+    db, q = _unit_rows(rng, n, d), _unit_rows(rng, b, d)
+    # exact duplicates across the first tile and the first range
+    # boundary, and query 0 equal to them: lowest index first
+    _, tile_rows, per_range, _ = mips_ops.mips_scan_grid(
+        b, n, sm_count(cuda))
+    dups = sorted({r for r in (tile_rows - 1, tile_rows,
+                               per_range - 1, per_range)
+                   if r < n})
+    if d > 1 and len(dups) > 1:
+        db[dups] = db[dups[0]]
+        q[0] = db[dups[0]]
+    qt, dbt = torch.from_numpy(q).to(cuda), torch.from_numpy(db).to(cuda)
+    before = mips_ops.launch_count()
+    vals, idx = mips_ops.mips_topk(qt, dbt, k)
+    assert mips_ops.launch_count() == before + 1
+    _assert_matches_plain(vals, idx, qt, dbt, k)
+    if d > 1 and len(dups) > 1:
+        m = min(k, len(dups))
+        assert idx[0, :m].tolist() == dups[:m]
+        assert bool((vals[0, :m] == vals[0, 0]).all())
+    for j in range(b):   # each query alone: its row of the batch, bitwise
+        v1, i1 = mips_ops.mips_topk(qt[j:j + 1].contiguous(), dbt, k)
+        assert torch.equal(v1, vals[j:j + 1]) and torch.equal(i1,
+                                                               idx[j:j + 1])
+
+
+@pytest.mark.parametrize("b,n,k", [(64, 140 * 256, 8), (64, 300 * 512, 8),
+                                   (1, 140 * 512, 64), (16, 5000, 1)])
+def test_mips_scan_with_tiles_of_tied_rows(cuda, b, n, k):
+    """Whole tiles whose rows tie exactly: a run of copies of query 0
+    (the best score, so the lowest indices must win) and, like the
+    store's padding, a tail of rows that all score the mask bias."""
+    rng = np.random.default_rng(n + k)
+    d = 256                                     # + 3 flag columns
+    emb, q = _unit_rows(rng, n, d), _unit_rows(rng, b, d)
+    emb[n // 3:n // 3 + 2000] = q[0]
+    dead = np.zeros((n, 1), np.float32)
+    emb[-n // 4:] = 0.0
+    dead[-n // 4:] = 1.0                        # scores the bias
+    db = np.concatenate([emb, dead, np.zeros((n, 2), np.float32)], axis=1)
+    q = np.concatenate([q, np.full((b, 1), mips_ops.MASK_BIAS, np.float32),
+                        np.zeros((b, 2), np.float32)], axis=1)
+    qt, dbt = torch.from_numpy(q).to(cuda), torch.from_numpy(db).to(cuda)
+    vals, idx = mips_ops.mips_topk(qt, dbt, k)
+    _assert_matches_plain(vals, idx, qt, dbt, k)
+    assert idx[0].tolist() == list(range(n // 3, n // 3 + k))
+    for j in (0, b - 1):
+        v1, i1 = mips_ops.mips_topk(qt[j:j + 1].contiguous(), dbt, k)
+        assert torch.equal(v1, vals[j:j + 1]) and torch.equal(i1,
+                                                               idx[j:j + 1])
+
+
+def test_mips_scan_takes_a_db_not_16_byte_aligned(cuda):
+    rng = np.random.default_rng(5)
+    n, d = 3000, 259
+    db, q = _unit_rows(rng, n, d), _unit_rows(rng, 20, d)
+    qt, dbt = torch.from_numpy(q).to(cuda), torch.from_numpy(db).to(cuda)
+    shifted = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    shifted.copy_(dbt)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    vals, idx = mips_ops.mips_topk(qt, shifted, 8)
+    want_v, want_i = mips_ops.mips_topk(qt, dbt, 8)
+    assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+    _assert_matches_plain(vals, idx, qt, dbt, 8)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -19,7 +19,8 @@ from repro.kernels.mips_topk.ops import MASK_BIAS as JAX_MASK_BIAS
 from repro.kernels.mips_topk.ops import augment_queries as jax_augment
 from repro.kernels.mips_topk.ops import flagged_mips_topk as jax_flagged
 
-from repro_torch.kernels.mips_topk import ops
+from repro_torch.kernels.common import CSRC_DIR, MIPS_TILE_ROWS
+from repro_torch.kernels.mips_topk import breakdown, ops
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
 
 SCORE_TOL = 1e-6
@@ -133,3 +134,82 @@ def test_scan_ranges_cover_rows(b, n):
         rows, ranges = ops.scan_ranges(b, n, sms)
         assert rows % 128 == 0 and ranges * rows >= n
         assert (ranges - 1) * rows < n
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 255), (15, 256), (16, 257),
+                                 (17, 35839), (64, 35840), (65, 35841),
+                                 (130, 1 << 22), (1000, 70000)])
+def test_mips_scan_grid_covers_rows(b, n):
+    for sms in (1, 7, 132):
+        tile, tile_rows, rows, ranges = ops.mips_scan_grid(b, n, sms)
+        assert tile == (16 if b <= 16 else 64)
+        assert tile_rows in MIPS_TILE_ROWS
+        assert rows % tile_rows == 0 and ranges * rows >= n
+        assert (ranges - 1) * rows < n
+        # about one block per SM: never more blocks than SMs, unless
+        # the query tiles alone outnumber them
+        q_tiles = -(-b // tile)
+        assert ranges * q_tiles <= max(sms, q_tiles)
+
+
+def test_mips_scan_grid_fills_the_card():
+    # 2^22 rows: 512-row tiles, one range per SM
+    assert ops.mips_scan_grid(64, 1 << 22, 132) == (64, 512, 63 * 512, 131)
+    assert ops.mips_scan_grid(1, 1 << 22, 132) == (16, 512, 63 * 512, 131)
+    # the main path's store buffer: 512-row tiles would fill 64 of 132
+    # SMs, so 256-row tiles, one per block
+    assert ops.mips_scan_grid(64, 32768, 132) == (64, 256, 256, 128)
+    assert ops.mips_scan_grid(1, 32768, 132) == (16, 256, 256, 128)
+
+
+def test_sm_count_reads_each_device_once(monkeypatch):
+    from repro_torch.kernels import common
+
+    calls = []
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: calls.append(i) or Props())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(common, "_SM_COUNTS", {})
+    for dev in ("cuda:0", "cuda:0", "cuda", "cuda:1"):
+        assert common.sm_count(torch.device(dev)) == 132
+    assert calls == [0, 1]
+
+
+def test_cuda_wrapper_hands_the_scan_grid_to_the_launcher(monkeypatch):
+    """The wrapper's arguments, in the order of the C entry point's
+    ctypes signature (the kernel itself runs only on the card)."""
+    seen = []
+
+    class Lib:
+        def mips_topk_launch(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(ops, "load_kernel", lambda name, sigs: Lib())
+    monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(ops, "stream_ptr", lambda dev: None)
+    before = ops.launch_count()
+    ops.mips_topk_cuda(torch.zeros((17, 259)), torch.zeros((70000, 259)), 8)
+    assert ops.launch_count() == before + 1
+    (args,) = seen
+    assert len(args) == len(ops._SIGNATURES["mips_topk_launch"][0])
+    assert args[6:14] == (17, 70000, 259, 8,
+                          *ops.mips_scan_grid(17, 70000, 132))
+
+
+@pytest.mark.parametrize("variant", sorted(breakdown.VARIANTS))
+def test_breakdown_switches_apply_to_the_shipped_source(variant):
+    """Each instrumented copy that the breakdown tool builds is the
+    kernel source with exactly its switches applied."""
+    source = (CSRC_DIR / "mips_topk.cu").read_text()
+    switches = breakdown.VARIANTS[variant]
+    copy = breakdown.instrumented_source(source, switches)
+    assert (copy == source) == (not switches)
+    for name in switches:
+        assert breakdown.SWITCHES[name][1] in copy
+    with pytest.raises(ValueError):
+        breakdown.instrumented_source(source, ("NO_LOAD", "NO_LOAD"))
