@@ -33,7 +33,8 @@ package.  Phases, each printing one JSON line:
                  through ``EraRAG`` with ``quantized_scan=True``, the
                  counters set to 0 just before and read just after:
                  ``lsh_hash``, ``hamming_topk`` and ``mips_rescore`` must
-                 have launched.  The graph must equal the exact path's;
+                 have launched, ``hamming_topk`` on its list route only.
+                 The graph must equal the exact path's;
                  every returned score must be bitwise the exact kernel's
                  for its row; with C = capacity the hits must be bitwise
                  the exact path's; b = 1 must equal b = 64; no tombstoned
@@ -47,8 +48,13 @@ package.  Phases, each printing one JSON line:
                  the plain hash plus the flag groups.  Then the kernel
                  against its plain version, bitwise, at the
                  main path's shape (the quantized store's codes, b = 64,
-                 C = 32) and at n = 2^22 rows x 11 words (real codes of
-                 random rows, duplicated rows planted), C = 32 and 4096;
+                 C = 32 and C = LIST_MAX_C) and at n = 2^22 rows x 11
+                 words (real codes of random rows, duplicated rows
+                 planted), C = 32 (b = 64, and b = 1 bitwise query 0 of
+                 b = 64) and 4096; each case checks the route that ran
+                 (list for C <= LIST_MAX_C, count above) and reports the
+                 grid, each kernel's device-only time and the bound
+                 share;
                  the gathered-rows rescore (``mips_rescore``) against its
                  plain version and the exact kernel at the same shapes;
                  the whole two-stage scan beside the exact scan at the
@@ -87,7 +93,6 @@ and the script exits non-zero; the last line of a passing run is
 from __future__ import annotations
 
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -138,56 +143,6 @@ def check(cond: bool, what: str) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-# the port's kernels by name: flash attention's fa_* and mips_topk.cu's
-# mips_* (templates end the name at "<", plain functions at "(")
-PORT_KERNEL = r"((?:fa|mips)_\w+?)[<(]"
-
-
-def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL) -> dict:
-    """Device milliseconds per call of each kernel whose name matches
-    ``pattern`` (its first group names it) that ``fn`` launches, from
-    ``torch.profiler`` over ``reps`` calls after a warm-up (empty if the
-    profiler sees no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = re.search(pattern, e.key)
-        dev_us = getattr(e, "self_device_time_total", e.device_time_total)
-        if name and dev_us > 0:
-            out[name.group(1)] = out.get(name.group(1), 0.0) + \
-                dev_us / reps / 1e3
-    return out
-
-
-def device_ms(fn, reps: int = 5) -> float:
-    """Device milliseconds per call of everything ``fn`` launches (a
-    library call's kernels, whatever their names)."""
-    return sum(kernel_ms(fn, reps, pattern=r"^(.+)$").values())
 
 
 def bound(n_bytes: float, n_flop: float,
@@ -367,6 +322,7 @@ def lsh_flips(got, want, v, h, label):
 def lsh_case(v, h, label):
     from repro_torch.kernels.lsh_hash import ops
     from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
+    from repro_torch.kernels.timing import time_ms
 
     n, d = v.shape
     k = h.shape[1]
@@ -419,6 +375,7 @@ def run_lsh(rag, n_init):
 def mips_case(q, db, k, bias, label):
     from repro_torch.kernels.mips_topk import ops
     from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
 
     b = q.shape[0]
     n, d = db.shape          # d counts the flag columns: the kernel's width
@@ -571,10 +528,14 @@ def run_quantized_path(corpus, exact, questions):
                 "mips_topk": mips_ops.launch_count(),
                 "hamming_topk": ham_ops.launch_count(),
                 "mips_rescore": mips_ops.rescore_launch_count()}
+    ham_routes = ham_ops.route_launch_counts()
 
     for name in ("lsh_hash", "hamming_topk", "mips_rescore"):
         check(launches[name] > 0,
               f"{name} kernel never launched on the quantized path")
+    # the serving C (coarse_mult x top_k) is the list route's
+    check(ham_routes == {"list": launches["hamming_topk"], "count": 0},
+          f"quantized path: hamming_topk routes {ham_routes}")
     check(list(rag.graph.nodes) == list(exact.graph.nodes),
           "quantized path: the graph differs from the exact path's")
     stats = rag.store.stats
@@ -664,7 +625,8 @@ def run_quantized_path(corpus, exact, questions):
          update_s=update_s, query_batch=len(questions),
          batches_per_s=batches_per_s, recall_at_8_vs_exact=recall,
          collapsed_recall_at_8_by_c=recall_by_c,
-         launches=launches, graph_equal=True,
+         launches=launches, hamming_topk_routes=ham_routes,
+         graph_equal=True,
          scores_bitwise_exact_kernel=n_scores,
          full_coverage_equal=True, batch_invariant=True,
          removed_docs=len(victims), removed_rows=len(dead),
@@ -726,10 +688,18 @@ def quantized_codes_case(rag_q, q):
 def hamming_case(qc, dbc, c, label, ops_rate):
     from repro_torch.kernels.hamming_topk import ops
     from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
+    from repro_torch.kernels.timing import kernel_ms, time_ms
 
     b, w = qc.shape
     n = dbc.shape[0]
+    grid = ops.hamming_route(
+        b, n, w, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    before = ops.route_launch_counts()
     dist, idx = ops.hamming_topk(qc, dbc, c)
+    after = ops.route_launch_counts()
+    check([r for r in ops.ROUTES if after[r] != before[r]] == [grid.route],
+          f"hamming_topk {label}: launched {after} after {before}, not "
+          f"the {grid.route} route")
     pd, pi = hamming_topk_ref(qc, dbc, c)
     torch.cuda.synchronize()
     check(torch.equal(dist, pd) and torch.equal(idx, pi),
@@ -740,16 +710,26 @@ def hamming_case(qc, dbc, c, label, ops_rate):
                        warmup=1)
     bound_ms, bound_by = bound(4.0 * (n * w + b * w + 2 * b * c),
                                float(b * n * w), ops_rate)
+    # device-only: each kernel of the call (no host work of the wrapper)
+    kernels = kernel_ms(lambda: ops.hamming_topk(qc, dbc, c))
+    kernel_device_ms = sum(kernels.values())
     return {"shape": {"b": b, "n": n, "w": w, "C": c},
+            "kernel_route": grid.route, "grid": grid._asdict(),
             "max_abs_err": int((dist - pd).abs().max()),
             "bitwise_equal": True, "equal_distance_neighbours": ties,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}, idx
+            "kernel_ms": ms, "kernel_device_ms": kernels,
+            "device_ms": kernel_device_ms,
+            "bound_share": bound_ms / ms,
+            "device_bound_share": bound_ms / kernel_device_ms
+            if kernel_device_ms else None,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, dist, idx
 
 
 def rescore_case(q_aug, db, cand, k, label):
     from repro_torch.kernels.mips_topk import ops
     from repro_torch.kernels.mips_topk.ref import mips_rescore_ref
+    from repro_torch.kernels.timing import time_ms
 
     b, d = q_aug.shape
     c = cand.shape[1]
@@ -794,8 +774,10 @@ def rescore_case(q_aug, db, cand, k, label):
 
 def run_hamming(rag_q, questions):
     from repro_torch.core.store import _filter_bias
+    from repro_torch.kernels.hamming_topk import ops as ham_ops
     from repro_torch.kernels.mips_topk import ops as mips_ops
     from repro_torch.kernels.quantized_scan import ops as quant_ops
+    from repro_torch.kernels.timing import time_ms
 
     rate = popc_per_s()
     grp = rag_q.store._group
@@ -807,8 +789,11 @@ def run_hamming(rag_q, questions):
     c_main = min(rag_q.cfg.coarse_mult * k, grp.capacity)
     lsh_main = quantized_codes_case(rag_q, q)
     qc = quant_ops.encode_queries(q, planes, bias, spec)
-    ham_main, cand = hamming_case(qc, grp.codes, c_main, "main path",
-                                  rate)
+    ham_main, _, cand = hamming_case(qc, grp.codes, c_main, "main path",
+                                     rate)
+    # the list route's largest C at the same shape
+    ham_main_cmax, _, _ = hamming_case(qc, grp.codes, ham_ops.LIST_MAX_C,
+                                       "main path C=LIST_MAX_C", rate)
     q_aug = mips_ops.augment_queries(q, bias).contiguous()
     res_main = rescore_case(q_aug, grp.buf, cand, k, "main path")
     # one batch's device work on the quantized main path, whole and its
@@ -842,9 +827,16 @@ def run_hamming(rag_q, questions):
     qd_aug = mips_ops.augment_queries(qd, bias).contiguous()
     deploy = {}
     for c in (32, 4096):
-        ham, cand = hamming_case(qcd, codes, c, f"2^22 C={c}", rate)
+        ham, dist, cand = hamming_case(qcd, codes, c, f"2^22 C={c}", rate)
         check(cand[0, :5].tolist() == list(range(999, 1004)),
               f"hamming_topk 2^22 C={c}: planted duplicates out of order")
+        if c == 32:
+            # one query (the duplicates' own): query 0 of the batch
+            ham_b1, d1, i1 = hamming_case(qcd[:1].contiguous(), codes, c,
+                                          "2^22 b=1 C=32", rate)
+            check(torch.equal(d1, dist[:1]) and torch.equal(i1, cand[:1]),
+                  "hamming_topk 2^22 C=32: b=1 differs from b=64")
+            ham["b1"] = ham_b1
         deploy[c] = {"hamming_topk": ham,
                      "mips_rescore": rescore_case(qd_aug, db, cand, k,
                                                   f"2^22 C={c}")}
@@ -857,13 +849,15 @@ def run_hamming(rag_q, questions):
     torch.cuda.empty_cache()
     emit("hamming_topk", popc_per_s=rate,
          main_path={"lsh_hash_quantized": lsh_main,
-                    "hamming_topk": ham_main, "mips_rescore": res_main,
+                    "hamming_topk": ham_main,
+                    "hamming_topk_c_list_max": ham_main_cmax,
+                    "mips_rescore": res_main,
                     **scan_main},
          at_2_22={f"C={c}": v for c, v in deploy.items()
                   if isinstance(c, int)},
          exact_flagged_mips_topk_ms_at_2_22=deploy[
              "exact_flagged_mips_topk_ms"])
-    return lsh_main, ham_main, res_main, deploy[4096]
+    return lsh_main, ham_main, res_main, deploy[32], deploy[4096]
 
 
 # ---------------------------------------------------------------------------
@@ -890,6 +884,7 @@ def attention_case(b, hq, hkv, lq, lk, d, causal, dtype, seed,
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         attention_grads_ref, attention_lse_ref, attention_ref
+    from repro_torch.kernels.timing import kernel_ms, time_ms
 
     q, k, v, do = _attn_inputs(b, hq, hkv, lq, lk, d, dtype, seed)
     tname = str(dtype).split(".")[1]
@@ -1048,6 +1043,7 @@ def run_train_path():
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models.transformer import init_params, loss_fn
     from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.kernels.timing import time_ms
 
     cfg = replace(llama3_8b(), n_layers=TRAIN_LAYERS)
     b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
@@ -1210,11 +1206,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (switches TF32 off)
     from repro_torch.kernels.common import build_kernels
+    from repro_torch.kernels.timing import card
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     t0 = time.perf_counter()
     builds = build_kernels(["lsh_hash", "mips_topk", "hamming_topk",
@@ -1230,8 +1224,8 @@ def main() -> int:
     mips_main, mips_deploy, mips_b1 = run_mips(rag, questions)
     rag_q, q_launches = run_quantized_path(corpus, rag, questions)
     run_reference_check(quantized_scan=True)
-    lsh_quant, ham_main, res_main, quant_deploy = run_hamming(rag_q,
-                                                              questions)
+    lsh_quant, ham_main, res_main, quant_c32, quant_deploy = run_hamming(
+        rag_q, questions)
     del rag, rag_q
     fa_main = run_flash_attention()
     train_launches = run_train_path()
@@ -1242,6 +1236,8 @@ def main() -> int:
 
     mips_keys = keys + ("tflop_per_s", "bound_share", "device_ms",
                         "kernel_device_ms", "library_device_ms")
+    ham_keys = ("kernel_route", "grid", "kernel_device_ms", "device_ms",
+                "bound_share", "device_bound_share")
 
     def entry(name, replaces, main_case, deploy_case, n_launches,
               source=None, extra=(), **more):
@@ -1286,9 +1282,15 @@ def main() -> int:
               mips_main, mips_deploy, launches["mips_topk"],
               extra=mips_keys[len(keys):],
               at_2_22_b1={k: mips_b1[k] for k in mips_keys}),
+        # main path and at_2_22_c32: the list route (C = 32); at_2_22:
+        # the counting route (C = 4096)
         entry("hamming_topk", "src/repro/kernels/hamming_topk/kernel.py:57",
               ham_main, quant_deploy["hamming_topk"],
-              q_launches["hamming_topk"]),
+              q_launches["hamming_topk"], extra=ham_keys,
+              at_2_22_c32={k: quant_c32["hamming_topk"][k]
+                           for k in keys + ham_keys},
+              at_2_22_c32_b1={k: quant_c32["hamming_topk"]["b1"][k]
+                              for k in keys + ham_keys}),
         # the exact rescore, XLA (not Pallas) in the JAX package
         entry("mips_rescore", "src/repro/kernels/quantized_scan/ops.py:229",
               res_main, quant_deploy["mips_rescore"],

@@ -18,14 +18,13 @@ n = 32768, b = 64, k = 8.  The variants are:
 
 Only ``full`` computes the right answer; the others are timed, not
 checked.  Prints one JSON object per shape, and the card's name and power
-limit first.  The copies are built into ``build/breakdown/``.
+limit first.  The copies are built into ``build/mips_topk_breakdown/``
+(``kernels/timing.py`` builds and times them).
 """
 from __future__ import annotations
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from typing import Dict, Tuple
 
@@ -75,67 +74,18 @@ VARIANTS: Dict[str, Tuple[str, ...]] = {
 SHAPES = ((64, 1 << 22, 259), (1, 1 << 22, 259), (64, 32768, 259))
 
 
-def instrumented_source(source: str, switches: Tuple[str, ...]) -> str:
-    """``source`` with each named switch applied once."""
-    for name in switches:
-        old, new = SWITCHES[name]
-        if source.count(old) != 1:
-            raise ValueError(f"switch {name}: its text occurs "
-                             f"{source.count(old)} times in the source")
-        source = source.replace(old, new)
-    return source
-
-
 def main() -> int:
     import torch
 
-    from repro_torch.kernels.common import BUILD_DIR, CSRC_DIR, \
-        NVCC_FLAGS, _nvcc, mips_scan_grid, sm_count
+    from repro_torch.kernels.common import mips_scan_grid, sm_count
     from repro_torch.kernels.mips_topk import ops
+    from repro_torch.kernels.timing import build_variants, card, time_ms
 
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], flush=True)
-    out_dir = BUILD_DIR / "breakdown"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    source = (CSRC_DIR / "mips_topk.cu").read_text()
-    procs = {}
-    for name, switches in VARIANTS.items():
-        src = out_dir / f"{name}.cu"
-        src.write_text(instrumented_source(source, switches))
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"breakdown build {name} failed:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        lib.mips_topk_launch.argtypes = \
-            ops._SIGNATURES["mips_topk_launch"][0]
-        lib.mips_topk_launch.restype = ctypes.c_int
-        libs[name] = lib
-
-    def time_ms(fn, reps=10):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+    print(card(), flush=True)
+    libs = build_variants("mips_topk", SWITCHES, VARIANTS, ops._SIGNATURES)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -267,6 +267,119 @@ def test_hamming_kernel_matches_plain_bitwise(cuda, b, n, w, c):
                                                                idx[j:j + 1])
 
 
+def _ham_codes(b, n, w, seed):
+    """Codes with many tied rows (n / 8 distinct) and query 0 equal to the
+    last row, as uint32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2**32, size=(max(1, n // 8), w),
+                        dtype=np.uint32)
+    dbc = base[rng.integers(0, base.shape[0], size=n)]
+    qc = rng.integers(0, 2**32, size=(b, w), dtype=np.uint32)
+    qc[0] = dbc[n - 1]
+    return qc, dbc
+
+
+def _ham_to(cuda, *arrays):
+    return [torch.from_numpy(a.view(np.int32)).to(cuda) for a in arrays]
+
+
+def _ham_call(qt, dt, c, route):
+    """One call on the card: one launch counted, on ``route``."""
+    before = ham_ops.launch_count()
+    routes = ham_ops.route_launch_counts()
+    dist, idx = ham_ops.hamming_topk_cuda(qt, dt, c)
+    assert ham_ops.launch_count() == before + 1
+    after = ham_ops.route_launch_counts()
+    assert {r: after[r] - routes[r] for r in ham_ops.ROUTES} == \
+        {r: int(r == route) for r in ham_ops.ROUTES}
+    return dist, idx
+
+
+# (b, n, w, c, key_bits): C at the list route's edges and one past it
+# (the counting route); b across the query tiles (8, 16, 64, and tiles
+# of 64 on the grid's second axis); n below C x ranges and not a
+# multiple of the row tile; w from 1 to MAX_W; 32- and 64-bit keys
+# (key_bits 64 forces the wide keys through ``list_key_bits``, None
+# leaves the route's own choice)
+HAM_LIST_CASES = [
+    (64, 5000, 11, 1, None), (64, 5000, 11, 31, None),
+    (64, 5000, 11, 32, None), (64, 5000, 11, 33, None),
+    (64, 5000, 11, ham_ops.LIST_MAX_C, None),
+    (64, 5000, 11, ham_ops.LIST_MAX_C + 1, None),
+    (1, 70000, 11, 32, None), (8, 70000, 11, 32, None),
+    (9, 20000, 11, 64, None), (65, 20000, 11, 32, None),
+    (130, 9000, 11, ham_ops.LIST_MAX_C, None),
+    (64, 700, 67, ham_ops.LIST_MAX_C, None), (5, 1000, 11, 100, None),
+    (5, 300, 1, 32, None), (17, 1000, 2, 100, None),
+    (3, 3000, 67, 50, None), (2, 700, ham_ops.MAX_W, 128, None),
+    (1, 1, 1, 1, None),
+    (64, 5000, 11, 32, 64), (9, 20000, 11, 128, 64),
+    (1, 70000, 11, 1, 64), (3, 3000, 67, 50, 64),
+    (130, 9000, 2, 33, 64)]
+
+
+@pytest.mark.parametrize("b,n,w,c,key_bits", HAM_LIST_CASES)
+def test_hamming_list_route_at_its_edges(cuda, monkeypatch, b, n, w, c,
+                                         key_bits):
+    if key_bits is not None:
+        monkeypatch.setattr(ham_ops, "list_key_bits",
+                            lambda w, rows: key_bits)
+    qc, dbc = _ham_codes(b, n, w, b + n + w + c)
+    g = ham_ops.hamming_route(b, n, w, c, sm_count(cuda))
+    assert key_bits is None or g.key_bits == key_bits
+    # copies of query 0's row across the first tile and range edges:
+    # they tie at distance 0 with its other copies and must come first,
+    # lowest row first
+    dbc[[r for r in (g.tile_rows - 1, g.tile_rows, g.rows_per_range - 1,
+                     g.rows_per_range, 2 * g.rows_per_range - 1)
+         if r < n]] = qc[0]
+    dups = np.flatnonzero((dbc == qc[0]).all(axis=1)).tolist()
+    qt, dt = _ham_to(cuda, qc, dbc)
+    dist, idx = _ham_call(qt, dt, c, g.route)
+    want_d, want_i = hamming_topk_ref(qt, dt, c)
+    assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    m = min(c, len(dups))
+    assert idx[0, :m].tolist() == dups[:m]
+    assert not dist[0, :m].any()
+    for j in sorted({0, b // 2, b - 1}):   # each query alone, bitwise
+        d1, i1 = _ham_call(qt[j:j + 1].contiguous(), dt, c, g.route)
+        assert torch.equal(d1, dist[j:j + 1]) and torch.equal(i1,
+                                                               idx[j:j + 1])
+
+
+@pytest.mark.parametrize("b,n,w,c", [(64, 5000, 11, 32), (9, 3000, 11, 128),
+                                     (1, 70000, 11, 1), (3, 700, 80, 77),
+                                     (4, 3000, 11, ham_ops.LIST_MAX_C + 1)])
+def test_hamming_plane_of_equal_rows(cuda, b, n, w, c):
+    """Every row equal: every distance ties, so the C lowest rows win."""
+    rng = np.random.default_rng(n + c)
+    row = rng.integers(0, 2**32, size=(1, w), dtype=np.uint32)
+    qc = rng.integers(0, 2**32, size=(b, w), dtype=np.uint32)
+    qt, dt = _ham_to(cuda, qc, np.repeat(row, n, axis=0))
+    route = "list" if c <= ham_ops.LIST_MAX_C else "count"
+    dist, idx = _ham_call(qt, dt, c, route)
+    want_d, want_i = hamming_topk_ref(qt, dt, c)
+    assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    assert idx.tolist() == [list(range(c))] * b
+
+
+@pytest.mark.parametrize("w,c", [(11, 32), (11, 129), (2, 64), (67, 8)])
+def test_hamming_takes_a_plane_view_one_row_in(cuda, w, c):
+    """A plane that starts one row into its storage (12 bytes past a
+    16-byte boundary for w = 11 and 67, 8 for w = 2)."""
+    n = 3000
+    qc, dbc = _ham_codes(7, n + 1, w, 11 + w)
+    qt, whole = _ham_to(cuda, qc, dbc)
+    view = whole[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    route = "list" if c <= ham_ops.LIST_MAX_C else "count"
+    dist, idx = _ham_call(qt, view, c, route)
+    want_d, want_i = hamming_topk_ref(qt, view.contiguous(), c)
+    assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    d2, i2 = _ham_call(qt, view.clone(), c, route)
+    assert torch.equal(dist, d2) and torch.equal(idx, i2)
+
+
 @pytest.mark.parametrize("b,n,d,k", [(4, 300, 64, 8), (9, 700, 259, 8),
                                      (64, 3000, 259, 8), (3, 130, 32, 60)])
 def test_rescore_at_full_coverage_is_the_exact_scan(cuda, b, n, d, k):

@@ -22,6 +22,7 @@ from repro.kernels.mips_topk.ops import flagged_mips_topk as jax_flagged
 from repro_torch.kernels.common import CSRC_DIR, MIPS_TILE_ROWS
 from repro_torch.kernels.mips_topk import breakdown, ops
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+from repro_torch.kernels.timing import instrumented_source
 
 SCORE_TOL = 1e-6
 NEAR_TIE = 1e-5
@@ -207,9 +208,10 @@ def test_breakdown_switches_apply_to_the_shipped_source(variant):
     kernel source with exactly its switches applied."""
     source = (CSRC_DIR / "mips_topk.cu").read_text()
     switches = breakdown.VARIANTS[variant]
-    copy = breakdown.instrumented_source(source, switches)
+    copy = instrumented_source(source, breakdown.SWITCHES, switches)
     assert (copy == source) == (not switches)
     for name in switches:
         assert breakdown.SWITCHES[name][1] in copy
     with pytest.raises(ValueError):
-        breakdown.instrumented_source(source, ("NO_LOAD", "NO_LOAD"))
+        instrumented_source(source, breakdown.SWITCHES,
+                            ("NO_LOAD", "NO_LOAD"))
