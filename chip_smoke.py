@@ -22,7 +22,8 @@ package.  Phases, each printing one JSON line:
                  must agree.
 3. ``lsh_hash``  kernel against its plain version at the main path's
                  shape (real embeddings; k = 12, and k = 128 for two
-                 groups of 64 hyperplanes) and at n = 2^22 rows.
+                 groups of 64 hyperplanes) and at n = 2^22 rows; each
+                 case's event and device-only time and bound share.
 4. ``mips_topk`` ``flagged_mips_topk`` through the kernel against its
                  plain version at the main path's shape (the real store
                  buffer) and at n = 2^22 rows x (256 + 3), b = 64 and
@@ -56,7 +57,13 @@ package.  Phases, each printing one JSON line:
                  grid, each kernel's device-only time and the bound
                  share;
                  the gathered-rows rescore (``mips_rescore``) against its
-                 plain version and the exact kernel at the same shapes;
+                 plain version and the exact kernel at the same shapes
+                 (at 2^22 query 0's top 5 must be the planted rows
+                 999..1003 in order), one kernel launch a call (the
+                 wrapper's count and the profiler's), its grid, event and
+                 device-only times, bound share, and a composition of
+                 library calls (gather, ``torch.bmm``, ``torch.topk``)
+                 timed as a yardstick;
                  the whole two-stage scan beside the exact scan at the
                  main path's shape and at 2^22.
 7. ``flash_attention`` the forward and backward kernels against the
@@ -322,7 +329,7 @@ def lsh_flips(got, want, v, h, label):
 def lsh_case(v, h, label):
     from repro_torch.kernels.lsh_hash import ops
     from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
-    from repro_torch.kernels.timing import time_ms
+    from repro_torch.kernels.timing import kernel_ms, time_ms
 
     n, d = v.shape
     k = h.shape[1]
@@ -339,9 +346,15 @@ def lsh_case(v, h, label):
     n_words = -(-k // 32)
     bound_ms, bound_by = bound(4.0 * (n * d + d * k + n * n_words),
                                2.0 * n * d * k)
+    # device-only: the kernel without the wrapper's host work
+    kernels = kernel_ms(lambda: ops.lsh_hash(v, h))
+    device = sum(kernels.values())
     return {"shape": {"n": n, "d": d, "k": k}, "bits_flipped": n_flipped,
             "flip_band": LSH_FLIP_BAND, "max_abs_err": max_flip_proj,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "kernel_ms": ms, "kernel_device_ms": kernels,
+            "device_ms": device, "bound_share": bound_ms / ms,
+            "device_bound_share": bound_ms / device if device else None,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
@@ -726,14 +739,25 @@ def hamming_case(qc, dbc, c, label, ops_rate):
             "bound_by": bound_by, "library_ms": None}, dist, idx
 
 
-def rescore_case(q_aug, db, cand, k, label):
+def rescore_case(q_aug, db, cand, k, label, planted=()):
+    """The rescore against its plain version and the exact scan; its
+    launches (one a call by the wrapper's count; the profiler must see
+    that kernel alone, at most once a call, as it may drop records),
+    event, device-only and wrapper host times, and a composition of
+    library calls as a yardstick.  ``planted``: rows that must lead
+    query 0's list, in row order."""
+    from repro_torch.kernels.common import rescore_grid
     from repro_torch.kernels.mips_topk import ops
     from repro_torch.kernels.mips_topk.ref import mips_rescore_ref
-    from repro_torch.kernels.timing import time_ms
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
 
     b, d = q_aug.shape
     c = cand.shape[1]
+    before = ops.rescore_launch_count()
     vals, idx = ops.mips_rescore(q_aug, db, cand, k)
+    check(ops.rescore_launch_count() == before + 1,
+          f"mips_rescore {label}: {ops.rescore_launch_count() - before} "
+          f"launches for one call")
     pv, pi = mips_rescore_ref(q_aug, db, cand, min(k + 1, c))
     torch.cuda.synchronize()
     max_err = float((vals - pv[:, :k]).abs().max())
@@ -756,20 +780,58 @@ def rescore_case(q_aug, db, cand, k, label):
               torch.equal(rows[ei[0].long()], idx[j].long()),
               f"mips_rescore {label}: query {j}'s scores are not the "
               f"exact kernel's")
+    check(idx[0, :len(planted)].tolist() == list(planted),
+          f"mips_rescore {label}: query 0 leads with "
+          f"{idx[0, :len(planted)].tolist()}, not the planted rows "
+          f"{list(planted)} in order")
     ms = time_ms(lambda: ops.mips_rescore(q_aug, db, cand, k))
     plain_ms = time_ms(lambda: mips_rescore_ref(q_aug, db, cand, k),
                        reps=5)
+    # device-only, and the kernels the profiler saw per call
+    launches = {}
+    kernels = kernel_ms(lambda: ops.mips_rescore(q_aug, db, cand, k),
+                        launches=launches)
+    device = sum(kernels.values())
+    check(set(launches) == {"mips_rescore_kernel"} and
+          0 < launches["mips_rescore_kernel"] <= 1,
+          f"mips_rescore {label}: kernel launches per call {launches}")
+    # the wrapper's host time: a call's return after an idle card
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.mips_rescore(q_aug, db, cand, k)
+        host.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     rows_read = int(torch.unique(cand).numel())
     bound_ms, bound_by = bound(
         4.0 * (rows_read * d + b * d + b * c) + 8.0 * b * k,
         2.0 * b * c * d)
+
+    # a composition of library calls (gather, batched product, top-k),
+    # timed as a yardstick only: the port never calls it
+    def composition():
+        rows = db[cand.long()]
+        return torch.topk(torch.bmm(rows, q_aug[:, :, None])[:, :, 0], k)
     return {"shape": {"b": b, "C": c, "d": d, "k": k,
                       "distinct_rows": rows_read},
+            "grid": rescore_grid(b, c, torch.cuda.get_device_properties(
+                0).multi_processor_count)._asdict(),
             "max_abs_err": max_err, "tolerance": SCORE_TOL,
             "ids_differing_at_near_ties": int((idx != pi[:, :k]).sum()),
-            "scores_bitwise_exact_kernel": True, "kernel_ms": ms,
+            "scores_bitwise_exact_kernel": True,
+            "planted_rows_first": list(planted),
+            "launches_per_call": 1,
+            "profiler_launches_per_call": launches,
+            "wrapper_host_us": statistics.median(host),
+            "kernel_ms": ms, "kernel_device_ms": kernels,
+            "device_ms": device, "bound_share": bound_ms / ms,
+            "device_bound_share": bound_ms / device if device else None,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "composition": "torch.topk(torch.bmm(db[cand], q[:, :, None]))",
+            "composition_ms": time_ms(composition),
+            "composition_device_ms": device_ms(composition)}
 
 
 def run_hamming(rag_q, questions):
@@ -837,9 +899,11 @@ def run_hamming(rag_q, questions):
             check(torch.equal(d1, dist[:1]) and torch.equal(i1, cand[:1]),
                   "hamming_topk 2^22 C=32: b=1 differs from b=64")
             ham["b1"] = ham_b1
+        # query 0 is row 999: it and its copies 1000..1003 lead, in order
         deploy[c] = {"hamming_topk": ham,
                      "mips_rescore": rescore_case(qd_aug, db, cand, k,
-                                                  f"2^22 C={c}")}
+                                                  f"2^22 C={c}",
+                                                  planted=range(999, 1004))}
         deploy[c]["two_stage_ms"] = time_ms(
             lambda: quant_ops.quantized_flagged_topk(
                 qd, db, codes, k, c, bias, planes, spec))
@@ -1238,6 +1302,13 @@ def main() -> int:
                         "kernel_device_ms", "library_device_ms")
     ham_keys = ("kernel_route", "grid", "kernel_device_ms", "device_ms",
                 "bound_share", "device_bound_share")
+    lsh_keys = ("kernel_device_ms", "device_ms", "bound_share",
+                "device_bound_share")
+    rescore_keys = ("grid", "launches_per_call", "wrapper_host_us",
+                    "kernel_device_ms", "device_ms", "bound_share",
+                    "device_bound_share",
+                    "composition", "composition_ms",
+                    "composition_device_ms")
 
     def entry(name, replaces, main_case, deploy_case, n_launches,
               source=None, extra=(), **more):
@@ -1270,10 +1341,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         # launches: the exact main path's; the quantized path's beside
         entry("lsh_hash", "src/repro/kernels/lsh_hash/kernel.py:51",
-              lsh_main, lsh_deploy, launches["lsh_hash"],
+              lsh_main, lsh_deploy, launches["lsh_hash"], extra=lsh_keys,
               quantized_path={
                   "launches": q_launches["lsh_hash"],
-                  **{k: lsh_quant[k] for k in keys},
+                  **{k: lsh_quant[k] for k in keys + lsh_keys},
                   **{k: lsh_quant[k] for k in (
                       "bits_flipped", "code_plane_rows",
                       "code_plane_bits_flipped",
@@ -1291,11 +1362,15 @@ def main() -> int:
                            for k in keys + ham_keys},
               at_2_22_c32_b1={k: quant_c32["hamming_topk"]["b1"][k]
                               for k in keys + ham_keys}),
-        # the exact rescore, XLA (not Pallas) in the JAX package
+        # the exact rescore, XLA (not Pallas) in the JAX package; main
+        # path and at_2_22_c32: C = 32, at_2_22: C = 4096
         entry("mips_rescore", "src/repro/kernels/quantized_scan/ops.py:229",
               res_main, quant_deploy["mips_rescore"],
               q_launches["mips_rescore"],
-              source="src/repro_torch/csrc/mips_topk.cu"),
+              source="src/repro_torch/csrc/mips_topk.cu",
+              extra=rescore_keys,
+              at_2_22_c32={k: quant_c32["mips_rescore"][k]
+                           for k in keys + rescore_keys}),
         # launches: the bf16 training path's (5 steps), on the tensor
         # cores; the fp32 FMA kernels' from train_reference's card steps
         *(fa_entry(fa_main[torch.bfloat16], train_launches, pass_)

@@ -65,21 +65,22 @@
 //     entries (each list is sorted, and its first entries are distinct
 //     rows).
 // mips_rescore_kernel (entry mips_rescore_launch) scores a per-query list
-// of gathered rows with the same chain and the same merge: the exact
-// rescore of the two-stage quantized scan, which is XLA in the JAX
-// package (src/repro/kernels/quantized_scan/ops.py:229, in _two_stage).
-// Rows past the end of a range or of the DB are never candidates;
+// of gathered rows with the same chain, in one launch with no scratch:
+// the exact rescore of the two-stage quantized scan, which is XLA in the
+// JAX package (src/repro/kernels/quantized_scan/ops.py:229, in
+// _two_stage).  Its design is at the kernel.  Rows past the end of a
+// range or of the DB are never candidates;
 // unfilled list slots hold (-inf, INT_MAX), which every real score
 // beats — including the store's masked rows at MASK_BIAS = -3e30.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;          // rescore and merge blocks
+constexpr int kThreads = 128;          // merge blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kDC = 32;                // rescore: features per chunk
 constexpr int kMaxK = 64;
 constexpr int kNoIdx = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
@@ -92,6 +93,29 @@ constexpr int kBlocks = kChunk / 4 + 1;  // 16-byte blocks per staged row
 constexpr int kPitchR = 4 * kBlocks;   // floats per staged row, = 4 mod 8
 constexpr int kQueue = 32;             // candidate slots per query and round
 constexpr int kSmemMax = 232448;       // a block's shared memory on sm_90
+
+// the rescore
+constexpr int kRescoreTile = 32;       // candidates per warp tile, a lane each
+constexpr int kRescoreChunk = 64;      // features per stage
+constexpr int kRescoreBlocks = kRescoreChunk / 4 + 1;  // 16-byte blocks a row
+constexpr int kRescorePitch = 4 * kRescoreBlocks;      // = 4 mod 8 floats
+constexpr int kRescoreStages = 2;      // per warp
+// a stage: the tile's rows (row-major), then the query's features
+constexpr int kRescoreStageFloats =
+    kRescoreTile * kRescorePitch + kRescoreChunk;
+constexpr int kRescoreMaxWarps = 8;    // per block
+constexpr int kMaxCluster = 8;         // the portable cluster size
+// a warp's ring and its list
+constexpr int kRescoreWarpBytes =
+    kRescoreStages * kRescoreStageFloats * 4 + 8 * kMaxK;
+static_assert(kRescoreStageFloats % 4 == 0 && kRescorePitch % 8 == 4 &&
+                  kRescoreTile * kRescoreBlocks % 32 == 0,
+              "16-byte aligned stages, rows and query chunks; whole "
+              "warp instructions of row blocks");
+static_assert(kRescoreTile * kRescorePitch <= 0xffff,
+              "a stage offset fits 16 bits");
+static_assert(kRescoreMaxWarps * kRescoreWarpBytes <= kSmemMax,
+              "rescore block exceeds shared memory");
 
 // A scan variant: each lane scores M rows x N queries (N a multiple of
 // 4); a warp is 8 lanes along the rows x 4 along the queries.
@@ -254,6 +278,17 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile(
       "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(s),
+      "l"(src), "r"(src_bytes));
+}
+
+// the same without the L2 prefetch (a gathered row's neighbours are not
+// read), and nothing at all, not even the zero fill, where src_bytes is 0
+__device__ __forceinline__ void cp_async16_row(float* dst, const float* src,
+                                               int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n" ::"r"(s),
       "l"(src), "r"(src_bytes));
 }
 
@@ -609,85 +644,231 @@ mips_merge_kernel(const float* __restrict__ part_v,
              out_i + static_cast<size_t>(qi) * k, k, lane);
 }
 
-// The rescore's score loop: thread tid sums the score of tile row tid
-// against one query, the scan's chain (one fmaf per feature in the
-// order 0..d-1, nothing padded).  Tile row r is DB row row_of(r), or
-// unused where row_of(r) < 0.  Features are staged through shared
-// memory kDC at a time.  Every thread of the block calls it (it holds
-// barriers).
-template <typename RowOf>
-__device__ __forceinline__ float score_rows(const float* __restrict__ q,
-                                            const float* __restrict__ db,
-                                            int d, RowOf row_of,
-                                            float (*rows_s)[kDC + 1],
-                                            float* q_s) {
-  const int tid = threadIdx.x;
-  float acc = 0.f;
-  for (int d0 = 0; d0 < d; d0 += kDC) {
-    const int len = min(kDC, d - d0);
-    __syncthreads();
-#pragma unroll 8
-    for (int e = tid; e < kThreads * kDC; e += kThreads) {
-      const int r = e / kDC, c = e % kDC;
-      const int row = row_of(r);
-      if (row >= 0 && c < len)
-        rows_s[r][c] = db[static_cast<size_t>(row) * d + d0 + c];
-    }
-    if (tid < len) q_s[tid] = q[d0 + tid];
-    __syncthreads();
-    if (len == kDC) {
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc = fmaf(rows_s[tid][c], q_s[c], acc);
-    } else {
-      for (int c = 0; c < len; ++c) acc = fmaf(rows_s[tid][c], q_s[c], acc);
-    }
-  }
-  return acc;
-}
-
-// The rescore of the two-stage quantized scan: one block per (query,
-// range of that query's candidates).  The query's own candidate rows
-// (its index list, cand[qi]) go through score_rows, so a (query, row)
-// score here is bitwise the score mips_scan_kernel computes for that
-// row.  Each warp keeps a top-k list over the rows it scores; the lists
-// go to a (b, ranges, 4, k) scratch that mips_merge_kernel folds.
-// Candidate indices outside [0, n) are never scored.
-__global__ void __launch_bounds__(kThreads)
-mips_rescore_kernel(const float* __restrict__ q,
-                    const float* __restrict__ db,
+// The rescore of the two-stage quantized scan, one launch a call: each
+// warp scores tiles of 32 of one query's candidates (its list cand[qi]),
+// one candidate a lane, so a (query, row) score is one thread's fmaf
+// chain over f = 0 .. d-1, bitwise the score mips_scan_kernel computes
+// for that row.
+//   * Grid (rescore_grid in kernels/common.py): a block holds
+//     queries_per_block queries of warps_per_query warps each, and of
+//     each query the candidates [rank * cands_per_block, + cands_per_block),
+//     rank being its place in a cluster of `cluster` blocks (1: no
+//     cluster).  Warp j of a query takes the block's tiles j,
+//     j + warps_per_query, ...
+//   * Staging: a ring of kRescoreStages stages per warp, filled with
+//     cp.async and drained with one wait and one __syncwarp per stage
+//     (warps never wait for each other).  A stage holds 64 features of
+//     the tile's 32 rows, each row as the 16-byte blocks that hold them
+//     (as the scan stages them: zero fill past the chunk, so any
+//     4-byte-aligned base works; 17 blocks of all 32 rows are 17 warp
+//     instructions), and the query's same features (4 bytes a lane),
+//     read as float4 broadcasts.  Lane r reads its row at its offset in
+//     its first block; the pitch of 68 floats puts lanes 8 apart in one
+//     4-bank group, so rows whose offsets agree there share a bank.  The
+//     next stages' copies are in flight while this stage's FMAs run,
+//     also across the warp's tiles.
+//   * Selection: each warp sorts a tile's 32 (score, row) pairs; its first
+//     tile's best k are its list as they stand, and a later tile with a
+//     pair that beats the list's k-th entry is offered best first to its
+//     WarpTopK.  The warps of a query fold their
+//     lists in shared memory; a cluster's first block folds its members'
+//     lists through distributed shared memory and writes the outputs.
+// Rows outside [0, n) are never scored; unfilled slots hold (-inf,
+// INT_MAX).  What bounds it: the gathered rows' bytes (b * C * d * 4, the
+// distinct rows at least); its FMAs (b * C * d) are far below the peak.
+__global__ void __launch_bounds__(kRescoreMaxWarps * 32, 1)
+mips_rescore_kernel(const float* __restrict__ q, const float* __restrict__ db,
                     const int32_t* __restrict__ cand,
-                    float* __restrict__ part_v, int32_t* __restrict__ part_i,
-                    int n, int d, int n_cand, int k, int cands_per_range,
-                    int n_ranges) {
-  __shared__ float rows_s[kThreads][kDC + 1];
-  __shared__ float q_s[kDC];
-  __shared__ int row_s[kThreads];
+                    float* __restrict__ out_v, int32_t* __restrict__ out_i,
+                    int b, int n, int d, int n_cand, int k,
+                    int queries_per_block, int warps_per_query,
+                    int cands_per_block, int cluster) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* ring = smem + warp * kRescoreStages * kRescoreStageFloats;
+  float* list_v = smem + warps * kRescoreStages * kRescoreStageFloats;
+  int* list_i = reinterpret_cast<int*>(list_v + warps * kMaxK);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int qi = blockIdx.y;
-  const int range = blockIdx.x;
-  const int p_begin = range * cands_per_range;
-  const int p_end = min(n_cand, p_begin + cands_per_range);
+  // a 1-D cluster is `cluster` consecutive blocks
+  const int rank = blockIdx.x % cluster;
+  const int qi = (blockIdx.x / cluster) * queries_per_block +
+                 warp / warps_per_query;
+  const int j = warp % warps_per_query;
+  const int p_end = min(n_cand, (rank + 1) * cands_per_block);
+  const int first = rank * cands_per_block + kRescoreTile * j;
+  const int stride = kRescoreTile * warps_per_query;
+  const int n_tiles =
+      qi < b && first < p_end ? (p_end - first + stride - 1) / stride : 0;
+  const int n_chunks = (d + kRescoreChunk - 1) / kRescoreChunk;
+  const int n_steps = n_tiles * n_chunks;
   const int32_t* my_cand = cand + static_cast<size_t>(qi) * n_cand;
   const float* my_q = q + static_cast<size_t>(qi) * d;
 
+  // the lane's candidate of tile t as stored (checked where it is used,
+  // so that a prefetch does not wait for its load), -1 past the tiles
+  auto cand_of = [&](int t) {
+    const int p = first + t * stride + lane;
+    return t < n_tiles && p < p_end ? __ldg(my_cand + p) : -1;
+  };
+  auto scored = [&](int row) {
+    return static_cast<unsigned>(row) < static_cast<unsigned>(n);
+  };
+
+  // the float offset of a row's features within their 16-byte blocks (a
+  // chunk starts at a multiple of 4 features)
+  auto offset_of = [&](int row) {
+    return static_cast<int>(
+        (reinterpret_cast<uintptr_t>(db + static_cast<size_t>(row) * d) >>
+         2) & 3);
+  };
+
+  // step s stages features [f0, f0 + len) of tile s / n_chunks: each row
+  // as the 16-byte blocks that hold them (consecutive lanes take
+  // consecutive blocks: lane l copies blocks l, l + 32, ... of the tile's
+  // 32 x kRescoreBlocks; nothing past the chunk is read, and the o floats
+  // before it share its first block, so they lie in the tensor's
+  // allocation), and the query's, 4 bytes a lane.  Where each of the
+  // lane's blocks comes from and goes is worked out once a tile, so a
+  // chunk's copies are one add and one predicated cp.async each.
+  constexpr int kCopies = kRescoreTile * kRescoreBlocks / 32;
+  const float* src[kCopies];  // the block at feature 0 of the chunk
+  // its place in a stage (low 16 bits), and the floats of it to read less
+  // the chunk's len, plus kRescoreChunk (high): one register, no spill
+  int place[kCopies];
+  int next_row = cand_of(0);
+  auto stage_load = [&](int s) {
+    if (s < n_steps) {
+      const int t = s / n_chunks;
+      const int c = s - t * n_chunks;
+      if (c == 0) {  // the next tile's candidates load meanwhile
+        const int ld_row = next_row;
+        next_row = cand_of(t + 1);
+#pragma unroll
+        for (int i = 0; i < kCopies; ++i) {
+          const int e = lane + 32 * i;
+          const int r = e / kRescoreBlocks, blk = e - r * kRescoreBlocks;
+          const int row = __shfl_sync(kFull, ld_row, r);
+          const int o = offset_of(row);
+          src[i] = db + static_cast<size_t>(row) * d - o + 4 * blk;
+          // a row that is not scored reads nothing
+          const int need = scored(row) ? o - 4 * blk : -kRescoreChunk;
+          place[i] = r * kRescorePitch + 4 * blk +
+                     ((need + kRescoreChunk) << 16);
+        }
+      }
+      const int f0 = c * kRescoreChunk;
+      const int len = min(kRescoreChunk, d - f0);
+      float* st = ring + (s % kRescoreStages) * kRescoreStageFloats;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int left = (place[i] >> 16) - kRescoreChunk + len;
+        cp_async16_row(st + (place[i] & 0xffff), src[i] + f0,
+                       4 * max(0, min(4, left)));
+      }
+      float* qs = st + kRescoreTile * kRescorePitch;
+#pragma unroll
+      for (int f = lane; f < kRescoreChunk; f += 32)
+        if (f < len) cp_async4(qs + f, my_q + f0 + f);
+    }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+
   WarpTopK list;
   list.init();
-  for (int t0 = p_begin; t0 < p_end; t0 += kThreads) {
-    __syncthreads();
-    int row = t0 + tid < p_end ? my_cand[t0 + tid] : -1;
-    row_s[tid] = (row >= 0 && row < n) ? row : -1;
-    // score_rows's first barrier publishes row_s
-    const float acc = score_rows(my_q, db, d, [&](int r) { return row_s[r]; },
-                                 rows_s, q_s);
-    row = row_s[tid];
-    list.offer(acc, row, row >= 0, k, lane);
+  float tv;
+  int ti;
+  list.kth(k, tv, ti);
+
+#pragma unroll
+  for (int s = 0; s < kRescoreStages - 1; ++s) stage_load(s);
+
+  float acc = 0.f;
+  int row = -1;
+  const float* x = ring;  // the lane's row in stage 0
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kRescoreStages - 2>();
+    // step s is visible to the whole warp, and every lane is done with
+    // step s - 1, whose stage the next load refills
+    __syncwarp();
+    stage_load(s + kRescoreStages - 1);
+    const int t = s / n_chunks;
+    const int c = s - t * n_chunks;
+    if (c == 0) {
+      acc = 0.f;
+      row = cand_of(t);
+      x = ring + lane * kRescorePitch + offset_of(row);
+    }
+    const int stage = (s % kRescoreStages) * kRescoreStageFloats;
+    const float* w = ring + stage + kRescoreTile * kRescorePitch;
+    const int len = min(kRescoreChunk, d - c * kRescoreChunk);
+    if (len == kRescoreChunk) {
+#pragma unroll
+      for (int f = 0; f < kRescoreChunk; f += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(w + f);
+        acc = fmaf(x[stage + f + 0], w4.x, acc);
+        acc = fmaf(x[stage + f + 1], w4.y, acc);
+        acc = fmaf(x[stage + f + 2], w4.z, acc);
+        acc = fmaf(x[stage + f + 3], w4.w, acc);
+      }
+    } else {
+#pragma unroll 1
+      for (int f = 0; f < len; ++f) acc = fmaf(x[stage + f], w[f], acc);
+    }
+    if (c == n_chunks - 1) {
+      float v = scored(row) ? acc : -INFINITY;
+      int i = scored(row) ? row : kNoIdx;
+      if (t == 0) {
+        // an empty list takes the tile's best k as they stand
+        warp_sort(v, i, lane);
+        list.v0 = lane < k ? v : -INFINITY;
+        list.i0 = lane < k ? i : kNoIdx;
+        list.kth(k, tv, ti);
+      } else if (__any_sync(kFull, better(v, i, tv, ti))) {
+        // best first: the list takes at most k of them, and the raised
+        // k-th entry turns the rest away in one ballot
+        warp_sort(v, i, lane);
+        list.offer(v, i, i != kNoIdx, k, lane, tv, ti);
+      }
+    }
   }
-  const size_t off =
-      ((static_cast<size_t>(qi) * n_ranges + range) * kWarps + warp) * k;
-  list.store(part_v + off, part_i + off, k, lane);
+  cp_async_wait<0>();
+
+  // another warp's sorted list (here or in a cluster member), best first
+  auto fold = [&](const float* lv, const int* li) {
+    list.offer(lv[lane], li[lane], lane < k, k, lane, tv, ti);
+    if (k > 32)
+      list.offer(lv[lane + 32], li[lane + 32], lane + 32 < k, k, lane, tv,
+                 ti);
+  };
+  auto publish = [&](int slot) {
+    list_v[slot * kMaxK + lane] = list.v0;
+    list_i[slot * kMaxK + lane] = list.i0;
+    list_v[slot * kMaxK + lane + 32] = list.v1;
+    list_i[slot * kMaxK + lane + 32] = list.i1;
+  };
+  if (warps_per_query > 1) {  // block-uniform
+    publish(warp);
+    __syncthreads();
+    if (j == 0 && qi < b)
+      for (int o = 1; o < warps_per_query; ++o)
+        fold(list_v + (warp + o) * kMaxK, list_i + (warp + o) * kMaxK);
+  }
+  if (cluster > 1) {  // one query a block: warp 0 holds the block's list
+    namespace cg = cooperative_groups;
+    cg::cluster_group cl = cg::this_cluster();
+    if (warp == 0) publish(0);
+    cl.sync();
+    if (rank == 0 && warp == 0)
+      for (int r = 1; r < cluster; ++r)
+        fold(cl.map_shared_rank(list_v, r), cl.map_shared_rank(list_i, r));
+    // no member leaves while the first block reads its shared memory
+    cl.sync();
+  }
+  if (rank == 0 && j == 0 && qi < b)
+    list.store(out_v + static_cast<size_t>(qi) * k,
+               out_i + static_cast<size_t>(qi) * k, k, lane);
 }
 
 template <class S>
@@ -768,31 +949,60 @@ extern "C" int mips_topk_launch(const float* q, const float* db,
 }
 
 // q: (b, d) augmented queries; cand: (b, n_cand) row indices into db
-// (n, d); part_v / part_i: (b, n_ranges, 4, k) scratch; out_v / out_i:
-// (b, k).  cands_per_range must be a multiple of 128 with
-// n_ranges == ceil(n_cand / cands_per_range).
+// (n, d); out_v / out_i: (b, k).  The grid is rescore_grid's
+// (kernels/common.py): queries_per_block x warps_per_query warps a
+// block (at most kRescoreMaxWarps), cands_per_block candidates of each
+// query a block, and a cluster of ceil(n_cand / cands_per_block) blocks
+// a query (at most kMaxCluster; one query a block where it is above 1).
+// One launch, no scratch; a cluster launch the card refuses returns its
+// error.
 extern "C" int mips_rescore_launch(const float* q, const float* db,
-                                   const int32_t* cand, float* part_v,
-                                   int32_t* part_i, float* out_v,
+                                   const int32_t* cand, float* out_v,
                                    int32_t* out_i, int b, int n, int d,
-                                   int n_cand, int k, int cands_per_range,
-                                   int n_ranges, void* stream) {
+                                   int n_cand, int k, int queries_per_block,
+                                   int warps_per_query, int cands_per_block,
+                                   int cluster, void* stream) {
+  const long long warps =
+      static_cast<long long>(queries_per_block) * warps_per_query;
   if (b <= 0 || n <= 0 || d <= 0 || n_cand < 1 || k < 1 || k > kMaxK ||
-      k > n_cand || cands_per_range <= 0 ||
-      cands_per_range % kThreads != 0 ||
-      n_ranges != (n_cand + cands_per_range - 1) / cands_per_range) {
+      k > n_cand || queries_per_block < 1 || warps_per_query < 1 ||
+      warps > kRescoreMaxWarps || cands_per_block < 1 || cluster < 1 ||
+      cluster > kMaxCluster ||
+      cluster != (n_cand + cands_per_block - 1) / cands_per_block ||
+      (cluster > 1 && queries_per_block != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_ranges, b);
-  mips_rescore_kernel<<<grid, kThreads, 0, s>>>(
-      q, db, cand, part_v, part_i, n, d, n_cand, k, cands_per_range,
-      n_ranges);
-  cudaError_t err = cudaGetLastError();
+  // the > 48 KB opt-in, once per device
+  static unsigned long long sized = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 merge_grid((b + kWarps - 1) / kWarps);
-  mips_merge_kernel<<<merge_grid, kThreads, 0, s>>>(
-      part_v, part_i, out_v, out_i, b, n_ranges * kWarps * k, k);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(sized & bit)) {
+    err = cudaFuncSetAttribute(mips_rescore_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kRescoreMaxWarps * kRescoreWarpBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized |= bit;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(
+      static_cast<unsigned>((b + queries_per_block - 1) / queries_per_block) *
+      cluster);
+  cfg.blockDim = dim3(static_cast<unsigned>(32 * warps));
+  cfg.dynamicSmemBytes = static_cast<size_t>(warps) * kRescoreWarpBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, mips_rescore_kernel, q, db, cand, out_v,
+                           out_i, b, n, d, n_cand, k, queries_per_block,
+                           warps_per_query, cands_per_block, cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

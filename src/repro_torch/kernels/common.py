@@ -1,7 +1,7 @@
 """Shared kernel utilities: ``cdiv``, the scan grids (``scan_ranges``,
 ``mips_scan_grid``), the card's SM count (``sm_count``), the device
 resolver, and the builder/loader for the hand-written CUDA kernels under
-``csrc/``.
+``csrc/``; and the rescore's grid (``rescore_grid``).
 
 Build route: each ``csrc/<name>.cu`` is compiled on first use by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, NamedTuple, Tuple
 
 import torch
 
@@ -35,8 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
-# The scan grid shared by mips_rescore and hamming_topk
-SCAN_ROWS = 128         # rows per block tile (kThreads in the sources)
+# The counting route's scan grid (hamming_topk)
+SCAN_ROWS = 128         # rows per block tile (kThreads in hamming_topk.cu)
 SCAN_BQ = 16            # queries per block (kBQ in hamming_topk.cu)
 _BLOCKS_PER_SM = 4      # scan blocks aimed at per SM when choosing ranges
 
@@ -45,6 +45,14 @@ _BLOCKS_PER_SM = 4      # scan blocks aimed at per SM when choosing ranges
 # the card, else the second)
 MIPS_QUERY_TILES = (16, 64)
 MIPS_TILE_ROWS = (512, 256)
+
+# The rescore (mips_rescore_kernel in csrc/mips_topk.cu): candidates per
+# warp tile, warps per block, blocks per cluster (the portable maximum),
+# and the warps of a block that holds a cluster's share of one query
+RESCORE_TILE = 32
+RESCORE_MAX_WARPS = 8
+RESCORE_MAX_CLUSTER = 8
+RESCORE_CLUSTER_WARPS = 2
 
 _SM_COUNTS: Dict[int, int] = {}
 
@@ -82,6 +90,36 @@ def mips_scan_grid(b: int, n: int,
     want = max(1, n_sms // q_tiles)
     rows_per_range = cdiv(tiles, min(tiles, want)) * tile_rows
     return tile, tile_rows, rows_per_range, cdiv(n, rows_per_range)
+
+
+class RescoreGrid(NamedTuple):
+    """The launch grid of ``mips_rescore``: each block holds
+    ``queries_per_block`` queries of ``warps_per_query`` warps each, and
+    ``cands_per_block`` candidates of each; a query spans ``cluster``
+    blocks (1: one block, no cluster)."""
+    queries_per_block: int
+    warps_per_query: int
+    cands_per_block: int
+    cluster: int
+
+
+def rescore_grid(b: int, c: int, n_sms: int) -> RescoreGrid:
+    """The rescore's grid for b queries of c candidates each.  Up to
+    ``RESCORE_MAX_WARPS`` tiles of 32, a query's candidates sit in one
+    block, one warp a tile, and a block takes several queries only where
+    the queries alone outnumber the SMs.  Above that a query gets a
+    cluster of up to ``RESCORE_MAX_CLUSTER`` blocks of
+    ``RESCORE_CLUSTER_WARPS`` warps, each block a contiguous share of
+    whole tiles."""
+    tiles = cdiv(c, RESCORE_TILE)
+    if tiles <= RESCORE_MAX_WARPS:
+        per_block = max(1, min(RESCORE_MAX_WARPS // tiles, b // n_sms))
+        return RescoreGrid(per_block, tiles, c, 1)
+    cluster = min(RESCORE_MAX_CLUSTER, cdiv(tiles, RESCORE_CLUSTER_WARPS))
+    block_tiles = cdiv(tiles, cluster)
+    return RescoreGrid(1, min(RESCORE_CLUSTER_WARPS, block_tiles),
+                       block_tiles * RESCORE_TILE,
+                       cdiv(tiles, block_tiles))
 
 
 def sm_count(device: torch.device) -> int:

@@ -7,9 +7,10 @@ the store's per-flag biases into the queries (``augment_queries``), so
 the kernel stays a plain MIPS top-k.
 
 ``mips_rescore`` is the exact stage of the two-stage quantized scan:
-the same score loop and merge over each query's own list of candidate
-rows (``mips_rescore_launch`` in the same source), so a rescored score
-is bitwise the scan's score for that row.
+the scan's score chain over each query's own list of candidate rows
+(``mips_rescore_launch`` in the same source, one kernel launch a call on
+``rescore_grid``'s grid, no scratch), so a rescored score is bitwise the
+scan's score for that row.
 
 The launch counters live on the process-global obs registry
 (``kernels.mips_topk.launches``, ``kernels.mips_rescore.launches``) and
@@ -24,8 +25,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import SCAN_ROWS, check_launch, \
-    load_kernel, mips_scan_grid, scan_ranges, sm_count, stream_ptr
+from repro_torch.kernels.common import check_launch, load_kernel, \
+    mips_scan_grid, rescore_grid, sm_count, stream_ptr
 from repro_torch.kernels.mips_topk import ref
 from repro_torch.obs.metrics import global_registry
 
@@ -38,7 +39,7 @@ _RESCORE_LAUNCHES = global_registry().counter(
 _SIGNATURES = {
     "mips_topk_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                          + [ctypes.c_void_p], ctypes.c_int),
-    "mips_rescore_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    "mips_rescore_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p], ctypes.c_int),
 }
 
@@ -59,10 +60,14 @@ def rescore_launch_count() -> int:
 
 
 def _check_f32(name: str, *ts: torch.Tensor) -> None:
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"{name} kernel takes float32 inputs")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} kernel takes contiguous inputs")
+    # plain loops: generator expressions cost microseconds a call here,
+    # where a small scan's kernel takes a few
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32 inputs")
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous inputs")
 
 
 def mips_topk_cuda(q: torch.Tensor, db: torch.Tensor,
@@ -131,18 +136,11 @@ def mips_rescore_cuda(q: torch.Tensor, db: torch.Tensor,
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    per_range, n_ranges = scan_ranges(b, c, sm_count(dev),
-                                      queries_per_block=1)
-    part_v = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),
-                         dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, n_ranges, SCAN_ROWS // 32, k),
-                         dtype=torch.int32,
-                         device=dev)
     lib = load_kernel("mips_topk", _SIGNATURES)
     err = lib.mips_rescore_launch(
-        q.data_ptr(), db.data_ptr(), cand.data_ptr(), part_v.data_ptr(),
-        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, d, c, k,
-        per_range, n_ranges, stream_ptr(dev))
+        q.data_ptr(), db.data_ptr(), cand.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), b, n, d, c, k, *rescore_grid(b, c, sm_count(dev)),
+        stream_ptr(dev))
     check_launch(lib, "mips_topk", err)
     _RESCORE_LAUNCHES.inc()
     return vals, idx

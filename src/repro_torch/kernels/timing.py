@@ -26,9 +26,9 @@ from repro_torch.kernels.common import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, \
     _nvcc
 
 # the port's kernels by name: flash attention's fa_*, mips_topk.cu's
-# mips_* and hamming_topk.cu's hamming_* (templates end the name at "<",
-# plain functions at "(")
-PORT_KERNEL = r"((?:fa|mips|hamming)_\w+?)[<(]"
+# mips_*, hamming_topk.cu's hamming_* and lsh_hash.cu's lsh_* (templates
+# end the name at "<", plain functions at "(")
+PORT_KERNEL = r"((?:fa|mips|hamming|lsh)_\w+?)[<(]"
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -48,11 +48,13 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL) -> dict:
+def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
+              launches: dict = None) -> dict:
     """Device milliseconds per call of each kernel whose name matches
     ``pattern`` (its first group names it) that ``fn`` launches, from
     ``torch.profiler`` over ``reps`` calls after a warm-up (empty if the
-    profiler sees no device time).
+    profiler sees no device time).  A ``launches`` dict is filled with
+    each such kernel's launches per call, as the profiler recorded them.
 
     The profiler drops records of the first kernels after it starts, so
     a first profiled step of ``reps`` calls is discarded (the schedule's
@@ -85,6 +87,12 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL) -> dict:
                     per_call / 1e3
         if out:
             break
+    if launches is not None:
+        for e in kept:
+            name = re.search(pattern, e.key)
+            if name and e.count:
+                launches[name.group(1)] = \
+                    launches.get(name.group(1), 0) + e.count / reps
     return out
 
 

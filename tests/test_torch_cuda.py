@@ -20,6 +20,7 @@ from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
+from repro_torch.kernels import common
 from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.hamming_topk import ops as ham_ops
 from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
@@ -408,6 +409,161 @@ def test_rescore_at_full_coverage_is_the_exact_scan(cuda, b, n, d, k):
         ev, _ = mips_ops.mips_topk(q_aug[j:j + 1].contiguous(),
                                    dbt[rows].contiguous(), k)
         assert torch.equal(ev[0], pv[j])
+
+
+def _rescore_call(q, db, cand, k):
+    """One ``mips_rescore`` call on the card: exactly one kernel launch."""
+    before = mips_ops.rescore_launch_count()
+    vals, idx = mips_ops.mips_rescore(q, db, cand, k)
+    assert mips_ops.rescore_launch_count() == before + 1
+    return vals, idx
+
+
+def _assert_rescore_matches(vals, idx, q, db, cand, k):
+    """Against the plain version: scores within SCORE_TOL, ids equal away
+    from near-ties; and every returned score is bitwise the exact scan's
+    (``mips_topk``) for its row, the rows in the scan's order."""
+    c = cand.shape[1]
+    pv, pi = mips_ops.mips_rescore(q.cpu(), db.cpu(), cand.cpu(),
+                                   min(k + 1, c))
+    got_v, got_i = vals.cpu(), idx.cpu()
+    assert float((got_v - pv[:, :k]).abs().max()) <= SCORE_TOL
+    near = torch.zeros_like(pv, dtype=torch.bool)
+    close = (pv[:, 1:] - pv[:, :-1]).abs() <= SCORE_TOL
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert not ((got_i != pi[:, :k]) & ~near[:, :k]).any()
+    for j in range(q.shape[0]):
+        rows = torch.sort(idx[j].long()).values
+        ev, ei = mips_ops.mips_topk(q[j:j + 1].contiguous(),
+                                    db[rows].contiguous(), k)
+        assert torch.equal(ev[0], vals[j])
+        assert torch.equal(rows[ei[0].long()], idx[j].long())
+
+
+def _rescore_inputs(b, n, d, c, seed):
+    """Unit rows and queries; each query's c distinct candidates in
+    random order (every row at c = n); rows 100..104 (d > 1) copies of
+    query 0 among its candidates."""
+    rng = np.random.default_rng(seed)
+    db, q = _unit_rows(rng, n, d), _unit_rows(rng, b, d)
+    cand = np.stack([rng.permutation(n)[:c] for _ in range(b)])
+    planted = []
+    if d > 1 and c >= 5:
+        planted = list(range(100, 105))
+        db[planted] = q[0]
+        others = [r for r in cand[0] if r not in planted]
+        cand[0] = rng.permutation(planted + others[:c - 5])
+    return q, db, cand.astype(np.int32), planted
+
+
+# (b, n, d, c, k): C from k to full coverage across the grid's shapes
+# (one warp, several warps of one block, clusters of 3 and 8 blocks), k
+# 1 to 64, b 1 to 65, d 1 to 1024
+RESCORE_CASES = [
+    (64, 5000, 259, 32, 8),              # the serving shape
+    (64, 5000, 259, 8, 8),               # C = k
+    (5, 3000, 259, 31, 8),
+    (65, 3000, 259, 33, 8),
+    (5, 3000, 64, 100, 32),
+    (1, 3000, 259, 129, 33),
+    (5, 3000, 259, 288, 8),              # a cluster of 3 blocks
+    (64, 20000, 259, 512, 64),
+    (5, 20000, 259, 4096, 8),            # clusters of 8 blocks
+    (65, 9000, 64, 4096, 1),
+    (1, 9000, 259, 4096, 64),
+    (5, 3000, 1024, 129, 64),
+    (64, 3000, 1024, 32, 32),
+    (64, 3000, 1, 100, 8),               # d = 1: every score +-q, ties
+    (5, 3000, 259, 3000, 64),            # full coverage
+    (64, 700, 259, 700, 8),
+    (1, 3000, 259, 1, 1),
+    (65, 3000, 64, 33, 33),
+    (5, 3000, 259, 64, 64)]
+
+
+@pytest.mark.parametrize("b,n,d,c,k", RESCORE_CASES)
+def test_rescore_matches_plain_and_the_exact_scan(cuda, b, n, d, c, k):
+    q, db, cand, planted = _rescore_inputs(b, n, d, c, b + n + d + c + k)
+    qt, dbt, ct = (torch.from_numpy(a).to(cuda) for a in (q, db, cand))
+    vals, idx = _rescore_call(qt, dbt, ct, k)
+    _assert_rescore_matches(vals, idx, qt, dbt, ct, k)
+    # the equal rows tie exactly and come first, in row order, whatever
+    # their places in the list
+    m = min(k, len(planted))
+    assert idx[0, :m].tolist() == planted[:m]
+    assert bool((vals[0, :m] == vals[0, 0]).all())
+    if c == n:   # full coverage: bitwise the exact scan
+        ev, ei = mips_ops.mips_topk(qt, dbt, k)
+        assert torch.equal(vals, ev) and torch.equal(idx, ei)
+    for j in sorted({0, b - 1}):   # each query alone, bitwise
+        v1, i1 = _rescore_call(qt[j:j + 1].contiguous(), dbt,
+                               ct[j:j + 1].contiguous(), k)
+        assert torch.equal(v1, vals[j:j + 1]) and torch.equal(i1,
+                                                               idx[j:j + 1])
+
+
+@pytest.mark.parametrize("c", [32, 4096])
+def test_rescore_b1_is_query_0_of_b64(cuda, c):
+    q, db, cand, _ = _rescore_inputs(64, 20000, 259, c, c)
+    qt, dbt, ct = (torch.from_numpy(a).to(cuda) for a in (q, db, cand))
+    vals, idx = _rescore_call(qt, dbt, ct, 8)
+    v1, i1 = _rescore_call(qt[:1].contiguous(), dbt, ct[:1].contiguous(), 8)
+    assert torch.equal(v1, vals[:1]) and torch.equal(i1, idx[:1])
+    assert idx[0, :5].tolist() == list(range(100, 105))
+
+
+@pytest.mark.parametrize("c", [32, 129, 4096])
+def test_rescore_takes_a_db_view_one_row_in(cuda, c):
+    """A DB that starts one row (1036 bytes) into its storage: 4-byte
+    aligned, not 16."""
+    q, db, cand, _ = _rescore_inputs(7, 5000, 259, c, 3 + c)
+    qt, dbt, ct = (torch.from_numpy(a).to(cuda) for a in (q, db, cand))
+    view = torch.empty((5001, 259), device=cuda)[1:]
+    view.copy_(dbt)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    vals, idx = _rescore_call(qt, view, ct, 8)
+    _assert_rescore_matches(vals, idx, qt, dbt, ct, 8)
+    v2, i2 = _rescore_call(qt, dbt, ct, 8)
+    assert torch.equal(vals, v2) and torch.equal(idx, i2)
+
+
+@pytest.mark.parametrize("c,valid", [(64, 40), (4200, 40), (37, 5)])
+def test_rescore_never_scores_candidates_outside_the_rows(cuda, c, valid):
+    """Candidates below 0 or at n and beyond, among `valid` real ones:
+    never returned; the rest is the rescore of the real ones alone, and
+    with fewer than k real ones the last slots stay (-inf, INT_MAX)."""
+    b, n, d, k = 5, 3000, 259, 8
+    q, db, real, _ = _rescore_inputs(b, n, d, valid, c + valid)
+    rng = np.random.default_rng(c)
+    bad = rng.choice(np.array([-1, -2**31, n, n + 7, 2**31 - 1], np.int32),
+                     size=(b, c - valid))
+    cand = np.concatenate([real, bad], axis=1)
+    for row in cand:
+        rng.shuffle(row)
+    qt, dbt, ct, rt = (torch.from_numpy(a).to(cuda)
+                       for a in (q, db, cand.astype(np.int32), real))
+    vals, idx = _rescore_call(qt, dbt, ct, k)
+    assert bool(((idx >= 0) & (idx < n)).sum(dim=1).eq(min(k, valid)).all())
+    m = min(k, valid)
+    want_v, want_i = _rescore_call(qt, dbt, rt, m)
+    assert torch.equal(vals[:, :m], want_v) and torch.equal(idx[:, :m],
+                                                            want_i)
+    assert bool((vals[:, m:] == -float("inf")).all())
+    assert bool((idx[:, m:] == 2**31 - 1).all())
+
+
+def test_rescore_refused_grid_raises(cuda, monkeypatch):
+    """A grid the launcher was not built for is refused and raises: no
+    other route runs and nothing is counted."""
+    q, db, cand, _ = _rescore_inputs(4, 3000, 259, 600, 9)
+    qt, dbt, ct = (torch.from_numpy(a).to(cuda) for a in (q, db, cand))
+    monkeypatch.setattr(mips_ops, "rescore_grid",
+                        lambda b, c, sms: common.RescoreGrid(1, 4, 64, 10))
+    before = mips_ops.rescore_launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mips_ops.mips_rescore(qt, dbt, ct, 8)
+    assert mips_ops.rescore_launch_count() == before
 
 
 def test_quantized_full_coverage_on_card(cuda):

@@ -9,6 +9,8 @@ than 1e-5 where they would decide the ids, so a failure names a real
 divergence, not a rounding race.  The CUDA kernel itself is tested
 in ``test_torch_cuda.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +21,8 @@ from repro.kernels.mips_topk.ops import MASK_BIAS as JAX_MASK_BIAS
 from repro.kernels.mips_topk.ops import augment_queries as jax_augment
 from repro.kernels.mips_topk.ops import flagged_mips_topk as jax_flagged
 
-from repro_torch.kernels.common import CSRC_DIR, MIPS_TILE_ROWS
+from repro_torch.kernels import common
+from repro_torch.kernels.common import CSRC_DIR, MIPS_TILE_ROWS, scan_ranges
 from repro_torch.kernels.mips_topk import breakdown, ops
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
 from repro_torch.kernels.timing import instrumented_source
@@ -132,7 +135,7 @@ def test_shape_and_k_checks():
 @pytest.mark.parametrize("b,n", [(1, 1), (64, 1000), (16, 129)])
 def test_scan_ranges_cover_rows(b, n):
     for sms in (1, 132):
-        rows, ranges = ops.scan_ranges(b, n, sms)
+        rows, ranges = scan_ranges(b, n, sms)
         assert rows % 128 == 0 and ranges * rows >= n
         assert (ranges - 1) * rows < n
 
@@ -215,3 +218,151 @@ def test_breakdown_switches_apply_to_the_shipped_source(variant):
     with pytest.raises(ValueError):
         instrumented_source(source, breakdown.SWITCHES,
                             ("NO_LOAD", "NO_LOAD"))
+
+
+def _rescore_cover(g, b, c):
+    """How often ``mips_rescore_kernel`` scores each (query, candidate)
+    under grid ``g``: the kernel's own mapping, block by block and warp
+    by warp (a block's rank in its cluster, its queries, each warp's
+    tiles).  Queries in one block group share the candidate pattern, so
+    it is built once per (rank, warp) and added to each query."""
+    per_query = np.zeros((g.cluster, g.warps_per_query, c), np.int64)
+    tile = common.RESCORE_TILE
+    stride = tile * g.warps_per_query
+    for rank in range(g.cluster):
+        p_end = min(c, (rank + 1) * g.cands_per_block)
+        for j in range(g.warps_per_query):
+            first = rank * g.cands_per_block + tile * j
+            if first >= p_end:
+                continue
+            p = (np.arange(first, p_end, stride)[:, None]
+                 + np.arange(tile)[None, :]).ravel()
+            per_query[rank, j] = np.bincount(p[p < p_end], minlength=c)
+    cover = np.zeros((b, c), np.int64)
+    warps = g.queries_per_block * g.warps_per_query
+    for block in range(common.cdiv(b, g.queries_per_block) * g.cluster):
+        rank = block % g.cluster
+        for w in range(warps):
+            qi = block // g.cluster * g.queries_per_block + \
+                w // g.warps_per_query
+            if qi < b:
+                cover[qi] += per_query[rank, w % g.warps_per_query]
+    return cover
+
+
+def _rescore_smem_bytes(source, warps):
+    """A rescore block's dynamic shared memory, from ``mips_topk.cu``'s
+    own constants: each warp's ring of stages and its top-k list."""
+    c = {name: _cu_int(source, name) for name in (
+        "kRescoreTile", "kRescoreChunk", "kRescoreStages", "kMaxK")}
+    pitch = 4 * (c["kRescoreChunk"] // 4 + 1)   # a row's 16-byte blocks
+    stage = c["kRescoreTile"] * pitch + c["kRescoreChunk"]
+    return warps * (c["kRescoreStages"] * stage * 4 + 8 * c["kMaxK"])
+
+
+def _cu_int(source, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         source).group(1))
+
+
+@pytest.mark.parametrize("b", [1, 5, 64, 65, 1000])
+@pytest.mark.parametrize("c", [1, 8, 31, 32, 33, 100, 128, 129, 256, 257,
+                               288, 512, 3000, 4096, 4200, 1 << 15, 1 << 22])
+def test_rescore_grid_scores_every_candidate_once(b, c):
+    """Every (query, candidate) is scored by exactly one warp, in one
+    launch: at most 8 warps a block, clusters of at most 8 blocks (one
+    query a block there), a cluster exactly as long as the candidates
+    need, and each block within the shared memory of an SM."""
+    source = (CSRC_DIR / "mips_topk.cu").read_text()
+    for sms in (1, 132):
+        g = common.rescore_grid(b, c, sms)
+        warps = g.queries_per_block * g.warps_per_query
+        assert 1 <= warps <= common.RESCORE_MAX_WARPS
+        assert 1 <= g.cluster <= common.RESCORE_MAX_CLUSTER
+        assert g.cluster == common.cdiv(c, g.cands_per_block)
+        assert g.cluster == 1 or g.queries_per_block == 1
+        assert _rescore_smem_bytes(source, warps) <= \
+            _cu_int(source, "kSmemMax")
+        if b * c <= 1 << 24:
+            assert (_rescore_cover(g, b, c) == 1).all()
+        else:   # one query stands for all: every query gets the same warps
+            assert (_rescore_cover(g, 1, c) == 1).all()
+
+
+def test_rescore_grid_at_the_serving_shapes():
+    # the main path (C = 32): one warp a query, one query a block
+    assert common.rescore_grid(64, 32, 132) == (1, 1, 32, 1)
+    assert common.rescore_grid(64, 128, 132) == (1, 4, 128, 1)
+    # C = 4096: a cluster of 8 blocks of 2 warps a query, 512 candidates
+    # a block (512 blocks, about 4 a SM, in one wave)
+    assert common.rescore_grid(64, 4096, 132) == (1, 2, 512, 8)
+    assert common.rescore_grid(1, 4096, 132) == (1, 2, 512, 8)
+    # full coverage at 2^22: 8 blocks, 2^19 candidates each
+    assert common.rescore_grid(64, 1 << 22, 132) == (1, 2, 1 << 19, 8)
+    # more queries than SMs: several a block
+    assert common.rescore_grid(1000, 32, 132) == (7, 1, 32, 1)
+
+
+def test_rescore_constants_match_the_source():
+    """The Python grid's limits are the kernel's, and the launcher's C
+    signature has the arguments the wrapper passes."""
+    source = (CSRC_DIR / "mips_topk.cu").read_text()
+    assert _cu_int(source, "kRescoreTile") == common.RESCORE_TILE
+    assert _cu_int(source, "kRescoreMaxWarps") == common.RESCORE_MAX_WARPS
+    assert _cu_int(source, "kMaxCluster") == common.RESCORE_MAX_CLUSTER
+    assert _cu_int(source, "kMaxK") == ops.MAX_K
+    assert common.RESCORE_CLUSTER_WARPS <= common.RESCORE_MAX_WARPS
+    launcher = source[source.index('extern "C" int mips_rescore_launch('):]
+    params = launcher[:launcher.index(")")].split(",")
+    assert len(params) == len(ops._SIGNATURES["mips_rescore_launch"][0])
+
+
+@pytest.mark.parametrize("b,c", [(64, 32), (65, 4096), (3, 288), (0, 32)])
+def test_rescore_wrapper_hands_the_grid_to_one_launch(monkeypatch, b, c):
+    """The wrapper's arguments, in the order of the C entry point's
+    ctypes signature (the kernel runs only on the card): the grid of
+    ``rescore_grid``, one launch counted, and no tensor allocated but
+    the two outputs."""
+    q, db = torch.zeros((b, 259)), torch.zeros((5000, 259))
+    cand = torch.zeros((b, c), dtype=torch.int32)
+    seen, allocs = [], []
+
+    class Lib:
+        def mips_rescore_launch(self, *args):
+            seen.append(args)
+            return 0
+
+    empty = torch.empty
+
+    def recording_empty(*args, **kwargs):
+        allocs.append((tuple(args[0]), kwargs.get("dtype")))
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "load_kernel", lambda name, sigs: Lib())
+    monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(ops, "stream_ptr", lambda dev: None)
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    before = ops.rescore_launch_count()
+    vals, idx = ops.mips_rescore_cuda(q, db, cand, 8)
+    assert allocs == [((b, 8), torch.float32), ((b, 8), torch.int32)]
+    assert vals.shape == idx.shape == (b, 8)
+    if b == 0:
+        assert not seen and ops.rescore_launch_count() == before
+        return
+    assert ops.rescore_launch_count() == before + 1
+    (args,) = seen
+    assert len(args) == len(ops._SIGNATURES["mips_rescore_launch"][0])
+    assert args[5:] == (b, 5000, 259, c, 8,
+                        *common.rescore_grid(b, c, 132), None)
+
+
+@pytest.mark.parametrize("variant", sorted(breakdown.RESCORE_VARIANTS))
+def test_rescore_breakdown_switches_apply_to_the_shipped_source(variant):
+    """Each instrumented copy of the rescore that the breakdown tool
+    builds is the kernel source with exactly its switches applied."""
+    source = (CSRC_DIR / "mips_topk.cu").read_text()
+    switches = breakdown.RESCORE_VARIANTS[variant]
+    copy = instrumented_source(source, breakdown.SWITCHES, switches)
+    assert (copy == source) == (not switches)
+    for name in switches:
+        assert breakdown.SWITCHES[name][1] in copy
