@@ -22,8 +22,14 @@ package.  Phases, each printing one JSON line:
                  must agree.
 3. ``lsh_hash``  kernel against its plain version at the main path's
                  shape (real embeddings; k = 12, and k = 128 for two
-                 groups of 64 hyperplanes) and at n = 2^22 rows; each
-                 case's event and device-only time and bound share.
+                 groups of 64 hyperplanes), at a growth round's chunk
+                 batch and at n = 2^22 rows; each case's grid
+                 (``lsh_grid``), launches a call (1, by the wrapper's
+                 count and the profiler's), event and device-only time
+                 and bound share; and the host time of one
+                 ``HyperplaneLSH.hash_packed`` call at the build's shape
+                 beside its parts (the rows' copy to the card, the
+                 kernel, the codes' copy back).
 4. ``mips_topk`` ``flagged_mips_topk`` through the kernel against its
                  plain version at the main path's shape (the real store
                  buffer) and at n = 2^22 rows x (256 + 3), b = 64 and
@@ -44,7 +50,8 @@ package.  Phases, each printing one JSON line:
                  The ``reference`` phase runs again with the quantized
                  scan.
 6. ``hamming_topk`` first ``lsh_hash`` at the quantized path's shape
-                 (the store's rows, k = 64) against its plain version,
+                 (the store's rows, k = 64) and at its query encoding
+                 (the 64 questions, k = 64) against its plain version,
                  and the store's code plane and the query codes against
                  the plain hash plus the flag groups.  Then the kernel
                  against its plain version, bitwise, at the
@@ -327,6 +334,11 @@ def lsh_flips(got, want, v, h, label):
 
 
 def lsh_case(v, h, label):
+    """The kernel against its plain version on rows ``v`` under planes
+    ``h``: bits outside the flip band, the grid, one launch a call (the
+    wrapper's count; the profiler must see the kernel alone, at most once
+    a call, as it may drop records), event and device-only times."""
+    from repro_torch.kernels.common import lsh_grid, sm_count
     from repro_torch.kernels.lsh_hash import ops
     from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
     from repro_torch.kernels.timing import kernel_ms, time_ms
@@ -337,7 +349,11 @@ def lsh_case(v, h, label):
     def plain():   # its zero-padded bits beyond k are already 0
         return lsh_hash_ref(v, h)
 
+    before = ops.launch_count()
     got = ops.lsh_hash(v, h)
+    check(ops.launch_count() == before + 1,
+          f"lsh_hash {label}: {ops.launch_count() - before} launches for "
+          f"one call")
     want = plain()
     torch.cuda.synchronize()
     n_flipped, max_flip_proj = lsh_flips(got, want, v, h, label)
@@ -347,9 +363,16 @@ def lsh_case(v, h, label):
     bound_ms, bound_by = bound(4.0 * (n * d + d * k + n * n_words),
                                2.0 * n * d * k)
     # device-only: the kernel without the wrapper's host work
-    kernels = kernel_ms(lambda: ops.lsh_hash(v, h))
+    launches = {}
+    kernels = kernel_ms(lambda: ops.lsh_hash(v, h), launches=launches)
     device = sum(kernels.values())
-    return {"shape": {"n": n, "d": d, "k": k}, "bits_flipped": n_flipped,
+    check(set(launches) == {"lsh_hash_kernel"} and
+          0 < launches["lsh_hash_kernel"] <= 1,
+          f"lsh_hash {label}: kernel launches per call {launches}")
+    return {"shape": {"n": n, "d": d, "k": k},
+            "grid": lsh_grid(n, k, sm_count(v.device))._asdict(),
+            "launches_per_call": 1, "profiler_launches_per_call": launches,
+            "bits_flipped": n_flipped,
             "flip_band": LSH_FLIP_BAND, "max_abs_err": max_flip_proj,
             "kernel_ms": ms, "kernel_device_ms": kernels,
             "device_ms": device, "bound_share": bound_ms / ms,
@@ -358,11 +381,38 @@ def lsh_case(v, h, label):
             "bound_by": bound_by, "library_ms": None}
 
 
+def hash_packed_split(lsh, vectors, reps=20):
+    """Host milliseconds (median of ``reps``) of one
+    ``HyperplaneLSH.hash_packed`` call on the host array ``vectors``, and
+    of its parts on their own: the rows' copy to the card, the kernel's
+    call (to its end), and the codes' copy back."""
+    from repro_torch.kernels.lsh_hash import ops
+
+    def host_ms(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    v = torch.from_numpy(vectors).cuda()
+    codes = ops.lsh_hash(v, lsh._planes)
+    return {"shape": {"n": vectors.shape[0], "d": vectors.shape[1],
+                      "k": lsh.k},
+            "hash_packed_ms": host_ms(lambda: lsh.hash_packed(vectors)),
+            "rows_to_card_ms": host_ms(
+                lambda: torch.from_numpy(vectors).cuda()),
+            "kernel_call_ms": host_ms(lambda: ops.lsh_hash(v, lsh._planes)),
+            "codes_to_host_ms": host_ms(lambda: codes.cpu().numpy())}
+
+
 def run_lsh(rag, n_init):
     # the main path's largest call: the initial build's chunk batch
     leaves = [nd.embedding for nd in rag.graph.nodes.values()
-              if nd.layer == 0][:n_init]
-    v = torch.from_numpy(np.stack(leaves)).cuda()
+              if nd.layer == 0]
+    v = torch.from_numpy(np.stack(leaves[:n_init])).cuda()
     h = torch.from_numpy(rag.graph.lsh.hyperplanes).cuda()
     main = lsh_case(v, h, "main path")
     # the same rows under 128 hyperplanes: two groups of 64 (a quantized
@@ -371,14 +421,22 @@ def run_lsh(rag, n_init):
     h128 = torch.randn(h.shape[0], 128, device="cuda", generator=gen)
     wide = lsh_case(v, h128, "k=128")
     del v
+    # a growth round's chunk batch: the first round's new leaves
+    n_round = rag.reports[1].n_new_chunks
+    growth = lsh_case(torch.from_numpy(np.stack(
+        leaves[n_init:n_init + n_round])).cuda(), h, "growth round")
+    # the host side of one build-size call, split into its parts
+    host = hash_packed_split(rag.graph.lsh, np.stack(leaves[:n_init]))
+    host["kernel_device_ms"] = main["device_ms"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     v = torch.randn(N_DEPLOY, h.shape[0], device="cuda", generator=gen)
     v[0] = 0.0   # the embedder's empty-text row: every bit set
     deploy = lsh_case(v, h, "2^22")
     del v
     torch.cuda.empty_cache()
-    emit("lsh_hash", main_path=main, k_128=wide, at_2_22=deploy)
-    return main, deploy
+    emit("lsh_hash", main_path=main, k_128=wide, growth_round=growth,
+         at_2_22=deploy, hash_packed=host)
+    return main, deploy, wide, growth
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +724,8 @@ def quantized_codes_case(rag_q, q):
     cw, fw = spec.code_words, spec.flag_words
     v = grp.buf[:n, :d].contiguous()
     case = lsh_case(v, planes, "quantized main path")
+    # the query encoding's hash: the 64 questions under the scan planes
+    case["query_encoding"] = lsh_case(q, planes, "query encoding")
     # the code plane: real words within the flip band of the plain hash,
     # each flag group all ones exactly where the row's flag is set
     codes = grp.codes[:n]
@@ -1284,7 +1344,7 @@ def main() -> int:
 
     corpus, rag, questions, n_init, launches = run_main_path()
     run_reference_check()
-    lsh_main, lsh_deploy = run_lsh(rag, n_init)
+    lsh_main, lsh_deploy, lsh_wide, lsh_growth = run_lsh(rag, n_init)
     mips_main, mips_deploy, mips_b1 = run_mips(rag, questions)
     rag_q, q_launches = run_quantized_path(corpus, rag, questions)
     run_reference_check(quantized_scan=True)
@@ -1302,8 +1362,8 @@ def main() -> int:
                         "kernel_device_ms", "library_device_ms")
     ham_keys = ("kernel_route", "grid", "kernel_device_ms", "device_ms",
                 "bound_share", "device_bound_share")
-    lsh_keys = ("kernel_device_ms", "device_ms", "bound_share",
-                "device_bound_share")
+    lsh_keys = ("grid", "launches_per_call", "kernel_device_ms",
+                "device_ms", "bound_share", "device_bound_share")
     rescore_keys = ("grid", "launches_per_call", "wrapper_host_us",
                     "kernel_device_ms", "device_ms", "bound_share",
                     "device_bound_share",
@@ -1342,13 +1402,18 @@ def main() -> int:
         # launches: the exact main path's; the quantized path's beside
         entry("lsh_hash", "src/repro/kernels/lsh_hash/kernel.py:51",
               lsh_main, lsh_deploy, launches["lsh_hash"], extra=lsh_keys,
+              k_128={k: lsh_wide[k] for k in keys + lsh_keys},
+              growth_round={k: lsh_growth[k] for k in keys + lsh_keys},
               quantized_path={
                   "launches": q_launches["lsh_hash"],
                   **{k: lsh_quant[k] for k in keys + lsh_keys},
                   **{k: lsh_quant[k] for k in (
                       "bits_flipped", "code_plane_rows",
                       "code_plane_bits_flipped",
-                      "query_code_bits_flipped")}}),
+                      "query_code_bits_flipped")},
+                  "query_encoding": {
+                      k: lsh_quant["query_encoding"][k]
+                      for k in keys + lsh_keys}}),
         entry("mips_topk", "src/repro/kernels/mips_topk/kernel.py:98",
               mips_main, mips_deploy, launches["mips_topk"],
               extra=mips_keys[len(keys):],

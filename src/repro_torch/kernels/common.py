@@ -1,7 +1,8 @@
 """Shared kernel utilities: ``cdiv``, the scan grids (``scan_ranges``,
 ``mips_scan_grid``), the card's SM count (``sm_count``), the device
 resolver, and the builder/loader for the hand-written CUDA kernels under
-``csrc/``; and the rescore's grid (``rescore_grid``).
+``csrc/``; the rescore's grid (``rescore_grid``) and ``lsh_hash``'s
+(``lsh_grid``).
 
 Build route: each ``csrc/<name>.cu`` is compiled on first use by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -53,6 +54,20 @@ RESCORE_TILE = 32
 RESCORE_MAX_WARPS = 8
 RESCORE_MAX_CLUSTER = 8
 RESCORE_CLUSTER_WARPS = 2
+
+# lsh_hash (csrc/lsh_hash.cu): the (planes, rows) a thread may hold
+# (the kernel's instantiations), a block's shared memory, the features of
+# a stage, the rows and planes of a TMA box, the alignment of the
+# swizzle, the row lanes of a tile that a block walks, the ring depths
+# tried deepest first, and the thread counts lsh_grid aims at
+LSH_KERNELS = ((8, 1), (8, 2), (8, 4), (8, 8), (12, 1), (12, 2), (12, 4))
+SMEM_MAX = 232448
+LSH_CHUNK = 32
+LSH_BOX = 256
+LSH_ALIGN = 1024
+LSH_TILE_LANES = 128
+LSH_STAGES = (4, 3, 2)
+LSH_THREADS_PER_SM = 192
 
 _SM_COUNTS: Dict[int, int] = {}
 
@@ -120,6 +135,98 @@ def rescore_grid(b: int, c: int, n_sms: int) -> RescoreGrid:
     return RescoreGrid(1, min(RESCORE_CLUSTER_WARPS, block_tiles),
                        block_tiles * RESCORE_TILE,
                        cdiv(tiles, block_tiles))
+
+
+class LshGrid(NamedTuple):
+    """The launch grid of ``lsh_hash``: a thread holds
+    ``rows_per_thread`` rows x ``planes_per_thread`` planes of fp32
+    accumulators; ``plane_groups`` threads share a row (one group of
+    planes each), ``row_lanes`` threads a group, and a producer warp
+    stages the rows; a tile is ``rows_per_thread * row_lanes`` rows,
+    staged 32 features at a time, with the same features of every plane,
+    through a ring of ``stages`` buffers; block b takes rows
+    ``[b * rows_per_block, (b + 1) * rows_per_block)`` tile by tile."""
+    planes_per_thread: int
+    rows_per_thread: int
+    plane_groups: int
+    row_lanes: int
+    stages: int
+    rows_per_block: int
+
+
+def lsh_max_threads(kp: int, r: int) -> int:
+    """A block's threads, its producer warp included, for ``r`` rows x
+    ``kp`` planes a thread, so that the accumulators stay in registers
+    (``max_threads`` in ``csrc/lsh_hash.cu``)."""
+    return 1024 if r * kp <= 8 else 512 if r * kp <= 32 else \
+        320 if r * kp <= 64 else 256
+
+
+def lsh_smem_bytes(grid: LshGrid, k: int) -> int:
+    """A block's dynamic shared memory under ``grid`` (``Layout`` in
+    ``csrc/lsh_hash.cu``), each part aligned to 1024 bytes: the
+    mbarriers; the ring of buffers, each a tile's rows x 32 features in
+    boxes of up to 256 rows and the chunk's planes in boxes of up to 256;
+    the code words of a tile where several threads share a row's words;
+    and the slack that aligns the base."""
+    def up(x):
+        return cdiv(x, LSH_ALIGN) * LSH_ALIGN
+    tile = grid.rows_per_thread * grid.row_lanes
+    box_rows = min(tile, LSH_BOX)
+    kpad = grid.plane_groups * grid.planes_per_thread
+    hbox = min(kpad, LSH_BOX)
+    plane_boxes = cdiv(kpad, hbox)
+    stage = up(cdiv(tile, box_rows) * box_rows * LSH_CHUNK * 4) + \
+        up(plane_boxes * LSH_CHUNK * hbox * 4)
+    words = tile * cdiv(k, 32) * 4 if grid.plane_groups > 1 else 0
+    return LSH_ALIGN + grid.stages * stage + words + LSH_ALIGN
+
+
+def lsh_layout(n: int, k: int, n_sms: int, kp: int, r: int) -> LshGrid:
+    """The rest of ``lsh_hash``'s grid once a thread's planes ``kp`` and
+    rows ``r`` are chosen.  A block holds one tile of an SM's share of
+    rows, with row lanes enough for it, up to twice ``LSH_TILE_LANES``
+    (and the block's thread limit, ``lsh_max_threads``) and 256 rows; a
+    larger share is walked in tiles of ``LSH_TILE_LANES`` lanes (whole
+    TMA boxes of 256 rows).  The deepest ring of ``LSH_STAGES`` that fits
+    the shared memory, in the largest such tile."""
+    g = cdiv(k, kp)
+    rows_sm = cdiv(n, n_sms)
+    lanes = cdiv(rows_sm, r)
+    most = (lsh_max_threads(kp, r) - 32) // g   # a producer warp besides
+    if most < 1:
+        raise ValueError(f"lsh_hash: {g} plane groups of {kp} exceed a "
+                         f"block")
+    if lanes > min(2 * LSH_TILE_LANES, most) or r * lanes > LSH_BOX:
+        lanes = min(LSH_TILE_LANES, most)
+        if r * lanes > LSH_BOX:   # tiles of whole boxes
+            lanes = r * lanes // LSH_BOX * LSH_BOX // r
+    while True:
+        tile = r * lanes
+        for stages in LSH_STAGES:
+            grid = LshGrid(kp, r, g, lanes, stages, max(tile, rows_sm))
+            if lsh_smem_bytes(grid, k) <= SMEM_MAX:
+                return grid
+        if lanes == 1:
+            raise ValueError(f"lsh_hash: no grid fits n={n}, k={k}")
+        # a smaller tile: one box of rows fewer, then half the rows
+        lanes = max(1, (tile - LSH_BOX if tile > LSH_BOX else tile // 2)
+                    // r)
+
+
+def lsh_grid(n: int, k: int, n_sms: int) -> LshGrid:
+    """``lsh_hash``'s grid for n rows under k planes (of any d: the
+    features stream 32 at a time, so d does not enter the grid).  A
+    thread takes 12 planes where k <= 12 (one thread a row's planes),
+    else 8 (``cdiv(k, 8)`` threads a row), and as many rows as the
+    kernel is built for with them (``LSH_KERNELS``) that keep
+    ``LSH_THREADS_PER_SM`` threads on each SM."""
+    rows_sm = cdiv(n, n_sms)
+    kp = 12 if k <= 12 else 8
+    g = cdiv(k, kp)
+    r = next((r for p, r in LSH_KERNELS[::-1] if p == kp and
+              rows_sm * g >= LSH_THREADS_PER_SM * r), 1)
+    return lsh_layout(n, k, n_sms, kp, r)
 
 
 def sm_count(device: torch.device) -> int:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import cdiv, check_launch, load_kernel, \
-    stream_ptr
+    lsh_grid, sm_count, stream_ptr
 from repro_torch.kernels.lsh_hash import ref
 from repro_torch.obs.metrics import global_registry
 
@@ -35,14 +35,18 @@ def launch_count() -> int:
     return _LAUNCHES.count
 
 
+# v, h, out; n, d, k; the grid (LshGrid's fields, in order); stream
 _SIGNATURES = {
-    "lsh_hash_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    "lsh_hash_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p], ctypes.c_int),
+    "lsh_hash_smem_bytes": ([ctypes.c_int] * 6, ctypes.c_int),
 }
 
 
 def lsh_hash_cuda(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/lsh_hash.cu`` on fp32 contiguous CUDA tensors."""
+    """Launch ``csrc/lsh_hash.cu`` on fp32 contiguous CUDA tensors: one
+    launch, on the grid ``lsh_grid`` picks for the shape; a launch the
+    card refuses raises."""
     n, d = v.shape
     k = h.shape[1]
     if k > MAX_K:
@@ -55,9 +59,10 @@ def lsh_hash_cuda(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
                       device=v.device)
     if n == 0:
         return out
+    grid = lsh_grid(n, k, sm_count(v.device))
     lib = load_kernel("lsh_hash", _SIGNATURES)
     err = lib.lsh_hash_launch(v.data_ptr(), h.data_ptr(), out.data_ptr(),
-                              n, d, k, stream_ptr(v.device))
+                              n, d, k, *grid, stream_ptr(v.device))
     check_launch(lib, "lsh_hash", err)
     _LAUNCHES.inc()
     return out

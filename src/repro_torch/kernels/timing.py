@@ -1,6 +1,6 @@
 """Timing the port's kernels on the card, shared by ``chip_smoke.py`` and
 the breakdown tools (``kernels/mips_topk/breakdown.py``,
-``kernels/hamming_topk/breakdown.py``):
+``kernels/hamming_topk/breakdown.py``, ``kernels/lsh_hash/breakdown.py``):
 
 - ``time_ms``    median CUDA-event time of a call;
 - ``kernel_ms``  each port kernel's device-only time per call, from
@@ -60,12 +60,15 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
     a first profiled step of ``reps`` calls is discarded (the schedule's
     warm-up), and each kernel's time is its mean over the launches
     recorded times its launches per call.  A profile that records no
-    device time at all is taken again, up to three times."""
+    device time at all is taken again, up to five times, each with twice
+    the calls of the one before (a step of a few short kernels can lose
+    every record)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     out = {}
-    for _ in range(3):
+    for attempt in range(5):
+        calls = reps << attempt
         kept = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -73,7 +76,7 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
                      on_trace_ready=lambda p: kept.extend(p.key_averages())
                      ) as prof:
             for _ in range(2):
-                for _ in range(reps):
+                for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -82,7 +85,7 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
             dev_us = getattr(e, "self_device_time_total",
                              e.device_time_total)
             if name and dev_us > 0 and e.count:
-                per_call = dev_us / e.count * max(1, round(e.count / reps))
+                per_call = dev_us / e.count * max(1, round(e.count / calls))
                 out[name.group(1)] = out.get(name.group(1), 0.0) + \
                     per_call / 1e3
         if out:
@@ -92,7 +95,7 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
             name = re.search(pattern, e.key)
             if name and e.count:
                 launches[name.group(1)] = \
-                    launches.get(name.group(1), 0) + e.count / reps
+                    launches.get(name.group(1), 0) + e.count / calls
     return out
 
 

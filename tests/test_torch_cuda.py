@@ -67,6 +67,130 @@ def test_lsh_kernel_matches_plain(cuda, n, d, k):
         (1 << k) - 1
 
 
+def _lsh_assert_matches_plain(got, v, h):
+    """Codes of the kernel against the plain version: a bit may differ
+    only where the fp64 projection lies within the flip band."""
+    k = h.shape[1]
+    want = lsh_ops.lsh_hash(v.cpu(), h.cpu())
+    diff = lsh_ops.unpack_bits(got.cpu(), k) != lsh_ops.unpack_bits(want, k)
+    if diff.any():
+        proj = v.cpu().double() @ h.cpu().double()
+        assert float(proj.abs()[diff].max()) <= FLIP_BAND
+
+
+@pytest.mark.parametrize("k", [12, 64, 128])
+def test_lsh_code_is_invariant(cuda, k):
+    """A row's code is bitwise the same hashed alone, in a batch of 64,
+    at offset 7 of a 20000-row batch and among 2^16 rows: each call takes
+    another grid (lsh_grid splits rows and planes by shape), never d."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    rows = torch.randn(1 << 16, 256, device=cuda, generator=gen)
+    h = torch.randn(256, k, device=cuda, generator=gen)
+    row = rows[7:8].contiguous()
+    batch = torch.cat([row, rows[100:163]])
+    alone = lsh_ops.lsh_hash(row, h)
+    grids = {common.lsh_grid(n, k, sm_count(cuda))
+             for n in (1, 64, 20000, 1 << 16)}
+    assert len(grids) >= 3
+    for got in (lsh_ops.lsh_hash(batch, h)[:1],
+                lsh_ops.lsh_hash(rows[:20000].contiguous(), h)[7:8],
+                lsh_ops.lsh_hash(rows, h)[7:8]):
+        assert torch.equal(got, alone)
+    _lsh_assert_matches_plain(alone, row, h)
+
+
+@pytest.mark.parametrize("n,k", [(3000, 12), (3000, 64), (700, 128)])
+def test_lsh_code_is_invariant_to_the_grid(cuda, n, k):
+    """Every split of rows and planes the kernel was built for (each
+    (planes, rows) a thread may hold, laid out by lsh_layout) gives
+    bitwise the codes of lsh_grid's own."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    v = torch.randn(n, 256, device=cuda, generator=gen)
+    h = torch.randn(256, k, device=cuda, generator=gen)
+    want = lsh_ops.lsh_hash(v, h)
+    lib = common.load_kernel("lsh_hash", lsh_ops._SIGNATURES)
+    tried = 0
+    for kp, r in common.LSH_KERNELS:
+        if kp == 12 and k > 12:     # KP 12 holds one group only
+            continue
+        grid = common.lsh_layout(n, k, sm_count(cuda), kp, r)
+        out = torch.full_like(want, 7)
+        assert lib.lsh_hash_launch(
+            v.data_ptr(), h.data_ptr(), out.data_ptr(), n, 256, k, *grid,
+            common.stream_ptr(cuda)) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), grid
+        tried += 1
+    assert tried >= 4
+
+
+def test_lsh_plane_groups_are_the_narrower_codes(cuda):
+    """The first two words of a k = 128 code are bitwise the k = 64 code
+    under the first 64 planes: a plane's bit never depends on the
+    others."""
+    gen = torch.Generator(device=cuda).manual_seed(128)
+    v = torch.randn(12510, 256, device=cuda, generator=gen)
+    h = torch.randn(256, 128, device=cuda, generator=gen)
+    wide = lsh_ops.lsh_hash(v, h)
+    narrow = lsh_ops.lsh_hash(v, h[:, :64].contiguous())
+    assert torch.equal(wide[:, :2], narrow)
+    _lsh_assert_matches_plain(wide, v, h)
+
+
+@pytest.mark.parametrize("k", [12, 33, 64])
+def test_lsh_takes_rows_not_16_byte_aligned(cuda, k):
+    """A contiguous view one float in (v[1:], d = 259) is hashed through
+    the 4-byte copies: the same codes as an aligned copy of it, within
+    the flip band of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    n, d = 3000, 259
+    base = torch.randn(n * d + 1, device=cuda, generator=gen)
+    v = base[1:].view(n, d)
+    assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+    h = torch.randn(d, k, device=cuda, generator=gen)
+    got = lsh_ops.lsh_hash(v, h)
+    assert torch.equal(got, lsh_ops.lsh_hash(v.clone(), h))
+    _lsh_assert_matches_plain(got, v, h)
+
+
+def test_lsh_takes_planes_held_in_chunks(cuda):
+    """d = 1024 at k = 64: 32 chunks of features, each staged with the
+    same features of all 64 planes (64 KB of planes would not fit whole
+    beside a ring of tiles), match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(1024)
+    v = torch.randn(30000, 1024, device=cuda, generator=gen)
+    h = torch.randn(1024, 64, device=cuda, generator=gen)
+    _lsh_assert_matches_plain(lsh_ops.lsh_hash(v, h), v, h)
+
+
+def test_lsh_smem_formula_is_the_launchers(cuda):
+    """lsh_grid sizes its grids with the launcher's own shared-memory
+    layout (csrc/lsh_hash.cu Layout)."""
+    lib = common.load_kernel("lsh_hash", lsh_ops._SIGNATURES)
+    for n, k in [(12510, 12), (64, 64), (30189, 64), (12510, 128),
+                 (1 << 22, 12), (100000, 512), (3000, 64), (77, 33)]:
+        g = common.lsh_grid(n, k, sm_count(cuda))
+        assert lib.lsh_hash_smem_bytes(
+            k, g.planes_per_thread, g.rows_per_thread, g.plane_groups,
+            g.row_lanes, g.stages) == common.lsh_smem_bytes(g, k)
+
+
+def test_lsh_refused_launch_raises(cuda, monkeypatch):
+    """A grid asking for more shared memory than a block has is refused
+    and raises: no other route runs and nothing is counted."""
+    v = torch.randn(5000, 256, device=cuda)
+    h = torch.randn(256, 12, device=cuda)
+    monkeypatch.setattr(lsh_ops, "lsh_grid",
+                        lambda n, k, sms: common.LshGrid(
+                            12, 4, 1, 128, 8, 5000))
+    assert common.lsh_smem_bytes(lsh_ops.lsh_grid(5000, 12, 132),
+                                 12) > common.SMEM_MAX
+    before = lsh_ops.launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lsh_ops.lsh_hash(v, h)
+    assert lsh_ops.launch_count() == before
+
+
 def _flagged_data(b, n, d, seed):
     rng = np.random.default_rng(seed)
     emb = rng.standard_normal((n, d)).astype(np.float32)
