@@ -73,6 +73,31 @@ package.  Phases, each printing one JSON line:
                  timed as a yardstick;
                  the whole two-stage scan beside the exact scan at the
                  main path's shape and at 2^22.
+6b. ``sharded_path`` the main path's store resharded in place
+                 (``EraRAG.reshard(4)``): every ``query_batch`` hit in
+                 the three modes equal to the flat store's (node id,
+                 layer, sequence number, score bits); the last growth
+                 round's documents removed and re-inserted and every
+                 shard compacted, each step against a flat
+                 ``VectorStore`` tracking the same graph; then
+                 ``reshard(8)`` and ``reshard(1)``, equal each time.
+                 The counters are set to 0 as it starts and count only
+                 its own steps: ``lsh_hash``, ``mips_topk`` and the merge
+                 must have launched.  Prints batches/s and launches a
+                 batch (flat against sharded), the merge's device ms,
+                 each reshard's seconds, the shard report and the
+                 routing counters.  Then the quantized store resharded
+                 to 4 (its kernels' launches; ``hamming_topk`` on the
+                 list route only), equal to the exact sharded store at
+                 C = capacity.
+    ``sharded_2_22`` 2^22 rows hash-routed into 4 slots of one stacked
+                 buffer (capacity the largest slot): the per-slot
+                 ``mips_topk`` scans plus the merge against
+                 ``flagged_mips_topk`` over the same rows, ids (the
+                 rows' flat index as sequence number) and scores
+                 bitwise equal; event and device ms of both, by kernel,
+                 and the merge's.  The ``reference`` phase runs again
+                 with ``index_shards=4``, exact and quantized.
 7. ``flash_attention`` the forward and backward kernels against the
                  plain version (``attention_ref`` and autograd through it):
                  output, logsumexp and dQ/dK/dV from a seeded dO at the
@@ -256,11 +281,13 @@ def run_main_path():
     return corpus, rag, questions, n_init_chunks, launches
 
 
-def run_reference_check(quantized_scan: bool = False):
+def run_reference_check(quantized_scan: bool = False,
+                        index_shards: int = 1):
     """The quickstart configuration on the card against the same code
     on the CPU (plain versions, which the CPU tests hold against the
     JAX package): same graph, hits, contexts and answers.  With
-    ``quantized_scan`` both run the two-stage quantized scan."""
+    ``quantized_scan`` both run the two-stage quantized scan, and with
+    ``index_shards`` > 1 the sharded store."""
     from repro_torch.common.config import EraRAGConfig
     from repro_torch.core.erarag import EraRAG
     from repro_torch.data.corpus import SyntheticCorpus
@@ -269,7 +296,8 @@ def run_reference_check(quantized_scan: bool = False):
 
     cfg = EraRAGConfig(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,
                        max_layers=3, chunk_tokens=32, top_k=8,
-                       token_budget=1024, quantized_scan=quantized_scan)
+                       token_budget=1024, quantized_scan=quantized_scan,
+                       index_shards=index_shards)
     corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
     init, rounds = corpus.growth_rounds(0.5, 5)
     rags = {dev: EraRAG(cfg, HashingEmbedder(dim=cfg.embed_dim),
@@ -301,8 +329,12 @@ def run_reference_check(quantized_scan: bool = False):
     scans = [rag.store.stats.quantized_scans for rag in (gpu, cpu)]
     check(scans[0] == scans[1] and (scans[0] > 0) == quantized_scan,
           f"reference: quantized scans {scans}")
+    shards = [getattr(rag.store, "n_shards", 1) for rag in (gpu, cpu)]
+    check(shards == [index_shards] * 2, f"reference: shards {shards}")
     emit("reference",
-         config="quickstart" + ("_quantized" if quantized_scan else ""),
+         config="quickstart" + ("_quantized" if quantized_scan else "")
+         + (f"_sharded{index_shards}" if index_shards != 1 else ""),
+         index_shards=index_shards,
          nodes=len(gpu.graph.nodes), queries=len(questions), modes=4,
          quantized_scans=scans[0], max_score_err=max_err,
          tolerance=SCORE_TOL, hits_equal=True, answers_equal=True)
@@ -985,6 +1017,350 @@ def run_hamming(rag_q, questions):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the sharded store
+# ---------------------------------------------------------------------------
+
+MODES = ("collapsed", "detailed", "summarized")
+
+
+def _bits_key(hits, seqs=True):
+    """A hit list by node id, layer, sequence number (unless a fresh
+    build numbered the rows anew) and the score's bits."""
+    return [(h.node_id, h.layer, h.seq if seqs else None,
+             int(np.float32(h.score).view(np.uint32))) for h in hits]
+
+
+class PathLaunches:
+    """The kernels' launch counters over the steps of a path: set to 0
+    when it starts, and only the steps run through ``drive`` count (the
+    checks' own searches in between do not)."""
+
+    def __init__(self):
+        from repro_torch.kernels.hamming_topk import ops as ham_ops
+        from repro_torch.kernels.lsh_hash import ops as lsh_ops
+        from repro_torch.kernels.mips_topk import ops as mips_ops
+        self.read = {"lsh_hash": lsh_ops.launch_count,
+                     "mips_topk": mips_ops.launch_count,
+                     "hamming_topk": ham_ops.launch_count,
+                     "mips_rescore": mips_ops.rescore_launch_count,
+                     "merge_sharded_topk": mips_ops.merge_launch_count}
+        for ops in (lsh_ops, mips_ops, ham_ops):
+            ops.reset_launch_count()
+        self.counts = dict.fromkeys(self.read, 0)
+
+    def drive(self, fn):
+        before = {k: f() for k, f in self.read.items()}
+        out = fn()
+        for k, f in self.read.items():
+            self.counts[k] += f() - before[k]
+        return out
+
+
+def _query_hits(rag, questions):
+    return {mode: [_bits_key(r.hits)
+                   for r in rag.query_batch(questions, mode=mode)]
+            for mode in MODES}
+
+
+def _batches_per_s_in_turns(rag, stores, questions, reps=10):
+    """``{name: {mode: batches/s}}`` of ``rag.query_batch`` with each of
+    ``stores`` (``{name: store}``, all synced to ``rag.graph``) swapped
+    in, in turns (a b b a), each turn's median batch time; ``rag.store``
+    is left as it was."""
+    keep = rag.store
+    times = {name: {mode: [] for mode in MODES} for name in stores}
+    names = list(stores)
+    for name in names + names[::-1]:
+        rag.store = stores[name]
+        for mode in MODES:
+            rag.query_batch(questions, mode=mode)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                rag.query_batch(questions, mode=mode)
+                times[name][mode].append(time.perf_counter() - t0)
+    rag.store = keep
+    return {name: {mode: 1.0 / statistics.median(t)
+                   for mode, t in by_mode.items()}
+            for name, by_mode in times.items()}
+
+
+def _same_store_hits(a, b, q, k, seqs, what):
+    for filt in (None, "leaf", "summary"):
+        got = a.search_batch(q, k, filt)
+        want = b.search_batch(q, k, filt)
+        check([_bits_key(h, seqs) for h in got]
+              == [_bits_key(h, seqs) for h in want],
+              f"sharded path: {what} ({filt}) differs")
+
+
+def run_sharded_path(corpus, rag, rag_q, questions):
+    """The main path's ``rag`` resharded in place: every hit bitwise the
+    flat store's, through removal, re-insertion and reshards, and the
+    quantized ``rag_q`` resharded, equal to the exact sharded store at
+    C = capacity."""
+    from repro_torch.core.store import ShardedVectorStore, VectorStore, \
+        _filter_bias, slot_topk
+    from repro_torch.kernels.hamming_topk import ops as ham_ops
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    from repro_torch.kernels.timing import device_ms, time_ms
+
+    k = rag.cfg.top_k
+    q = np.asarray(rag.embedder.encode(questions), np.float32)
+    flat_store = rag.store
+    flat_hits = _query_hits(rag, questions)
+    flat_launches = {}
+    for mode in MODES:
+        before = mips_ops.launch_count()
+        rag.query_batch(questions, mode=mode)
+        flat_launches[mode] = mips_ops.launch_count() - before
+
+    path = PathLaunches()
+    reshard_s = {}
+
+    def reshard(n):
+        t0 = time.perf_counter()
+        path.drive(lambda: rag.reshard(n))
+        torch.cuda.synchronize()
+        reshard_s[str(n)] = time.perf_counter() - t0
+
+    reshard(4)
+    check(isinstance(rag.store, ShardedVectorStore) and
+          rag.store.n_shards == 4, "sharded path: reshard(4)")
+    check(path.drive(lambda: _query_hits(rag, questions)) == flat_hits,
+          "sharded path: reshard(4) hits differ from the flat store's")
+    # timed outside the path's count: the flat turns launch too
+    bps = _batches_per_s_in_turns(
+        rag, {"flat": flat_store, "sharded": rag.store}, questions)
+    # the store layer alone: one search_batch (scan(s), merge, read-back,
+    # hits), event ms in turns (flat, sharded, sharded, flat)
+    search_ms = {"flat": [], "sharded": []}
+    for name in ("flat", "sharded", "sharded", "flat"):
+        st = flat_store if name == "flat" else rag.store
+        search_ms[name].append(time_ms(lambda: st.search_batch(q, k),
+                                       reps=20))
+    del flat_store
+    sharded_launches = {}
+    for mode in MODES:
+        before = (mips_ops.launch_count(), mips_ops.merge_launch_count())
+        path.drive(lambda: rag.query_batch(questions, mode=mode))
+        sharded_launches[mode] = {
+            "mips_topk": mips_ops.launch_count() - before[0],
+            "merge_sharded_topk": mips_ops.merge_launch_count() - before[1]}
+    report_4 = rag.store.shard_report()
+    # the merge alone, on this path's (4, 64, 8) candidates
+    store = rag.store
+    q_aug = mips_ops.augment_queries(torch.from_numpy(q).cuda(),
+                                     _filter_bias(None)).contiguous()
+    parts = [slot_topk(q_aug, sh.buf, store._group.seq_view(sh.slot), k)
+             for sh in store._shards if sh.count]
+    merge_in = (torch.stack([v for v, _ in parts]),
+                torch.stack([i for _, i in parts]))
+    merge_device_ms = device_ms(
+        lambda: mips_ops.merge_sharded_topk(*merge_in, k))
+
+    # the last growth round's documents out and back in, against a flat
+    # store that tracks the same graph (a fresh build: its own numbers)
+    tracker = VectorStore(rag.graph, device="cuda")
+    _same_store_hits(store, tracker, q, k, False, "before removal")
+    _, rounds = corpus.growth_rounds(0.5, 5)
+    last = rounds[-1]
+    t0 = time.perf_counter()
+    path.drive(lambda: rag.remove_docs([doc for doc, _ in last]))
+    remove_s = time.perf_counter() - t0
+    _same_store_hits(store, tracker, q, k, False, "after removal")
+    t0 = time.perf_counter()
+    path.drive(lambda: rag.insert_docs(last))
+    reinsert_s = time.perf_counter() - t0
+    _same_store_hits(store, tracker, q, k, False, "after re-insertion")
+    st = store.stats
+    tombstoned, compacted = st.rows_tombstoned, st.compactions
+    path.drive(store.compact)      # every shard's tombstones, inline
+    _same_store_hits(store, tracker, q, k, False, "after compaction")
+    compacted = {"rows_tombstoned": tombstoned,
+                 "compactions_before": compacted,
+                 "compactions": store.stats.compactions,
+                 "compactions_skipped": store.stats.compactions_skipped}
+    check(compacted["compactions"] > compacted["compactions_before"]
+          and tombstoned > 0, f"sharded path: {store.stats}")
+    reports = {"4": report_4}
+    for n in (8, 1):
+        before = _query_hits(rag, questions)
+        reshard(n)
+        check(_query_hits(rag, questions) == before,
+              f"sharded path: reshard({n}) hits differ")
+        _same_store_hits(rag.store, tracker, q, k, False,
+                         f"after reshard({n})")
+        if n > 1:
+            reports[str(n)] = rag.store.shard_report()
+    check(isinstance(rag.store, VectorStore), "reshard(1): not flat")
+    launches = dict(path.counts)
+    for name in ("lsh_hash", "mips_topk", "merge_sharded_topk"):
+        check(launches[name] > 0,
+              f"{name} never launched on the sharded path")
+
+    # the quantized store resharded; C = capacity is the exact store
+    path_q = PathLaunches()
+    t0 = time.perf_counter()
+    path_q.drive(lambda: rag_q.reshard(4))
+    reshard_q_s = time.perf_counter() - t0
+    qs = rag_q.store
+    flat_q = VectorStore(rag_q.graph, device="cuda", quantized=True,
+                         coarse_mult=rag_q.cfg.coarse_mult,
+                         scan_bits=rag_q.cfg.scan_bits,
+                         scan_seed=rag_q.cfg.seed)
+    bps_q = _batches_per_s_in_turns(
+        rag_q, {"flat": flat_q, "sharded": qs}, questions)
+    del flat_q
+    rets_q = path_q.drive(lambda: {m: rag_q.query_batch(questions, mode=m)
+                                   for m in MODES})
+    check(all(r.hits for rets in rets_q.values() for r in rets),
+          "sharded quantized: a query returned no hits")
+    launches_q = dict(path_q.counts)
+    for name in ("lsh_hash", "hamming_topk", "mips_rescore",
+                 "merge_sharded_topk"):
+        check(launches_q[name] > 0,
+              f"{name} never launched on the sharded quantized path")
+    check(ham_ops.route_launch_counts()["count"] == 0,
+          "sharded quantized: hamming_topk left the list route")
+    exact = ShardedVectorStore(rag_q.graph, n_shards=4, device="cuda")
+    qs.coarse_mult = FULL_COVERAGE
+    _same_store_hits(qs, exact, q, k, False,
+                     "quantized at C = capacity against exact")
+    qs.coarse_mult = rag_q.cfg.coarse_mult
+    route = store.stats      # the sharded store's own routing counters
+    emit("sharded_path", rows=rag.store.size,
+         batches_per_s_in_turns=bps, search_batch_ms_in_turns=search_ms,
+         flat_launches_per_batch=flat_launches,
+         sharded_launches_per_batch=sharded_launches,
+         merge_device_ms=merge_device_ms,
+         merge_shape=list(merge_in[0].shape),
+         reshard_s=reshard_s, remove_s=remove_s, reinsert_s=reinsert_s,
+         removed_docs=len(last),
+         shard_report={n: [{key: r[key] for key in (
+             "rows", "dead", "capacity", "device")} for r in rep]
+             for n, rep in reports.items()},
+         flat_capacity=tracker._group.capacity,
+         routing={"route_hits": route.route_hits,
+                  "route_misses": route.route_misses,
+                  "bulk_routed": route.bulk_routed},
+         sharded_stats=compacted,
+         launches=launches, hits_bitwise_equal=True,
+         quantized={"reshard_s": reshard_q_s,
+                    "batches_per_s_in_turns": bps_q,
+                    "launches": launches_q,
+                    "shard_report": [{key: r[key] for key in (
+                        "rows", "dead", "capacity")}
+                        for r in qs.shard_report()],
+                    "full_coverage_equals_exact": True})
+    return launches, launches_q
+
+
+def run_sharded_deploy():
+    """2^22 rows hash-routed into 4 slots of one stacked buffer: the
+    per-slot scans plus the merge against ``flagged_mips_topk`` over the
+    same rows, with each row's sequence number its flat index."""
+    from repro_torch.core.store import _bulk_route, _filter_bias, \
+        slot_topk
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
+
+    n_slots, k, d = 4, 8, 256
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    db = torch.zeros(N_DEPLOY, d + 3, device="cuda")
+    db[:, :d] = torch.nn.functional.normalize(
+        torch.randn(N_DEPLOY, d, device="cuda", generator=gen), dim=1)
+    flag = torch.rand(N_DEPLOY, device="cuda", generator=gen)
+    db[:, d] = (flag < 0.1).float()                  # dead
+    db[:, d + 1] = (flag >= 0.7).float()             # summary
+    db[:, d + 2] = (flag < 0.7).float()              # leaf
+    # rows 1000..1003 copies of row 999, an alive leaf, and query 0
+    # equal to it: exact ties across the slots
+    db[999, d:] = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    db[1000:1004] = db[999]
+    qd = torch.nn.functional.normalize(
+        torch.randn(64, d, device="cuda", generator=gen), dim=1)
+    qd[0] = db[999, :d]
+    t0 = time.perf_counter()
+    owners = torch.from_numpy(_bulk_route(
+        [f"row{i}" for i in range(N_DEPLOY)], n_slots)).cuda()
+    route_s = time.perf_counter() - t0
+    counts = torch.bincount(owners, minlength=n_slots).tolist()
+    cap = max(counts)
+    stack = torch.zeros(n_slots, cap, d + 3, device="cuda")
+    stack[..., d] = 1.0                               # padding: dead
+    seq = torch.full((n_slots, cap), mips_ops.SEQ_PAD, dtype=torch.int32,
+                     device="cuda")
+    for s in range(n_slots):
+        rows = torch.nonzero(owners == s).flatten()   # ascending
+        stack[s, :len(rows)] = db[rows]
+        seq[s, :len(rows)] = rows.int()
+    del owners
+    bias = _filter_bias(None)
+    q_aug = mips_ops.augment_queries(qd, bias).contiguous()
+
+    def sharded():
+        parts = [slot_topk(q_aug, stack[s], seq[s], k)
+                 for s in range(n_slots)]
+        return mips_ops.merge_sharded_topk(
+            torch.stack([v for v, _ in parts]),
+            torch.stack([i for _, i in parts]), k)
+
+    def flat():
+        return mips_ops.flagged_mips_topk(qd, db, k, bias)
+
+    sv, ss = sharded()
+    fv, fi = flat()
+    torch.cuda.synchronize()
+    check(torch.equal(sv, fv) and torch.equal(ss, fi),
+          "sharded 2^22: the 4-slot loop + merge differs from the flat "
+          "scan")
+    check(ss[0, :5].tolist() == list(range(999, 1004)),
+          "sharded 2^22: the planted duplicates out of order")
+    sharded_ms = time_ms(sharded)
+    flat_ms = time_ms(flat)
+    launches = {}
+    sharded_kernels = kernel_ms(sharded, launches=launches)
+    sharded_all_device_ms = device_ms(sharded)
+    flat_kernels = kernel_ms(flat)
+    parts = [slot_topk(q_aug, stack[s], seq[s], k) for s in range(n_slots)]
+    merge_in = (torch.stack([v for v, _ in parts]),
+                torch.stack([i for _, i in parts]))
+    merge_ms = time_ms(lambda: mips_ops.merge_sharded_topk(*merge_in, k))
+    merge_dev = device_ms(lambda: mips_ops.merge_sharded_topk(*merge_in, k))
+    # where the slots' extra device time goes: the same four scans over
+    # the flat buffer's aligned quarters (smaller scans, no slot view)
+    quarter = N_DEPLOY // n_slots
+    quarters = [db[i * quarter:(i + 1) * quarter] for i in range(n_slots)]
+    quarter_kernels = kernel_ms(
+        lambda: [mips_ops.mips_topk(q_aug, part, k) for part in quarters])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"shape": {"b": 64, "n": N_DEPLOY, "d": d + 3, "k": k,
+                     "slots": n_slots, "slot_rows": counts,
+                     "capacity": cap},
+           "stack_bytes": stack.numel() * 4, "route_s": route_s,
+           "bitwise_equal_flat": True, "sharded_ms": sharded_ms,
+           "flat_ms": flat_ms, "sharded_over_flat": sharded_ms / flat_ms,
+           "sharded_kernel_device_ms": sharded_kernels,
+           "sharded_device_ms": sum(sharded_kernels.values()),
+           "sharded_all_device_ms": sharded_all_device_ms,
+           "flat_kernel_device_ms": flat_kernels,
+           "flat_device_ms": sum(flat_kernels.values()),
+           "sharded_launches_per_call": launches,
+           "merge_ms": merge_ms, "merge_device_ms": merge_dev,
+           "quarters_kernel_device_ms": quarter_kernels,
+           "scan_grid": {"slot": mips_ops.mips_scan_grid(64, cap, sms),
+                         "quarter": mips_ops.mips_scan_grid(64, quarter,
+                                                            sms),
+                         "flat": mips_ops.mips_scan_grid(64, N_DEPLOY,
+                                                         sms)}}
+    del db, stack, seq
+    torch.cuda.empty_cache()
+    emit("sharded_2_22", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: flash attention, forward and backward
 # ---------------------------------------------------------------------------
 
@@ -1350,7 +1726,12 @@ def main() -> int:
     run_reference_check(quantized_scan=True)
     lsh_quant, ham_main, res_main, quant_c32, quant_deploy = run_hamming(
         rag_q, questions)
+    sh_launches, sh_q_launches = run_sharded_path(corpus, rag, rag_q,
+                                                  questions)
     del rag, rag_q
+    sh_deploy = run_sharded_deploy()
+    run_reference_check(index_shards=4)
+    run_reference_check(quantized_scan=True, index_shards=4)
     fa_main = run_flash_attention()
     train_launches = run_train_path()
     fp32_launches = run_train_reference()
@@ -1402,6 +1783,9 @@ def main() -> int:
         # launches: the exact main path's; the quantized path's beside
         entry("lsh_hash", "src/repro/kernels/lsh_hash/kernel.py:51",
               lsh_main, lsh_deploy, launches["lsh_hash"], extra=lsh_keys,
+              sharded_path={"launches": sh_launches["lsh_hash"],
+                            "quantized_launches":
+                                sh_q_launches["lsh_hash"]},
               k_128={k: lsh_wide[k] for k in keys + lsh_keys},
               growth_round={k: lsh_growth[k] for k in keys + lsh_keys},
               quantized_path={
@@ -1417,7 +1801,15 @@ def main() -> int:
         entry("mips_topk", "src/repro/kernels/mips_topk/kernel.py:98",
               mips_main, mips_deploy, launches["mips_topk"],
               extra=mips_keys[len(keys):],
-              at_2_22_b1={k: mips_b1[k] for k in mips_keys}),
+              at_2_22_b1={k: mips_b1[k] for k in mips_keys},
+              sharded_path={"launches": sh_launches["mips_topk"],
+                            "merge_launches":
+                                sh_launches["merge_sharded_topk"]},
+              sharded_4_slots_at_2_22={
+                  key: sh_deploy[key] for key in (
+                      "sharded_ms", "flat_ms", "sharded_device_ms",
+                      "flat_device_ms", "sharded_launches_per_call",
+                      "merge_device_ms", "bitwise_equal_flat")}),
         # main path and at_2_22_c32: the list route (C = 32); at_2_22:
         # the counting route (C = 4096)
         entry("hamming_topk", "src/repro/kernels/hamming_topk/kernel.py:57",
@@ -1426,7 +1818,8 @@ def main() -> int:
               at_2_22_c32={k: quant_c32["hamming_topk"][k]
                            for k in keys + ham_keys},
               at_2_22_c32_b1={k: quant_c32["hamming_topk"]["b1"][k]
-                              for k in keys + ham_keys}),
+                              for k in keys + ham_keys},
+              sharded_path={"launches": sh_q_launches["hamming_topk"]}),
         # the exact rescore, XLA (not Pallas) in the JAX package; main
         # path and at_2_22_c32: C = 32, at_2_22: C = 4096
         entry("mips_rescore", "src/repro/kernels/quantized_scan/ops.py:229",
@@ -1435,7 +1828,8 @@ def main() -> int:
               source="src/repro_torch/csrc/mips_topk.cu",
               extra=rescore_keys,
               at_2_22_c32={k: quant_c32["mips_rescore"][k]
-                           for k in keys + rescore_keys}),
+                           for k in keys + rescore_keys},
+              sharded_path={"launches": sh_q_launches["mips_rescore"]}),
         # launches: the bf16 training path's (5 steps), on the tensor
         # cores; the fp32 FMA kernels' from train_reference's card steps
         *(fa_entry(fa_main[torch.bfloat16], train_launches, pass_)

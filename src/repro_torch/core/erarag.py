@@ -14,14 +14,21 @@ summarization stay on the host, as in the JAX package.
 include_store=True)`` dict as is (numpy arrays and Python values) and
 serves the same queries from it with no re-embedding.
 
-Served here: the single-buffer store (``index_shards=1``), with the
-exact scan or, under ``quantized_scan=True``, the two-stage quantized
-scan (``coarse_mult``, ``scan_bits`` and the config seed pass through to
-the store).  The sharded store, live resharding and the semantic query
-cache raise ``NotImplementedError``.
+Served here: the single-buffer store (``index_shards=1``) and the
+hash-sharded store (``index_shards`` > 1, or 0 for one shard per device
+of the store's device type), each with the exact scan or, under
+``quantized_scan=True``, the two-stage quantized scan (``coarse_mult``,
+``scan_bits`` and the config seed pass through to the store), and the
+explicit ``EraRAG.reshard``.  The sharded store's collective query
+(``collective_query``) needs several devices and a process group, so
+the per-shard loop serves every batch, as in the JAX package without a
+mesh.  Live resharding by a lifecycle policy (the ``reshard_*``
+thresholds) and the semantic query cache raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,7 +38,8 @@ from repro_torch.core.graph import EraGraph, UpdateReport
 from repro_torch.core.retrieve import BridgeFn, Retrieval, \
     adaptive_search_batch, collapsed_search_batch, \
     multihop_search_batch
-from repro_torch.core.store import VectorStore, store_from_state
+from repro_torch.core.store import AnyStore, ShardedVectorStore, \
+    VectorStore, store_from_state
 from repro_torch.core.summarize import Summarizer
 from repro_torch.data.chunker import chunk_corpus
 from repro_torch.data.tokenizer import HashTokenizer
@@ -41,9 +49,6 @@ from repro_torch.obs import Observability
 
 def _check_served(cfg: EraRAGConfig) -> None:
     """Raise for the config options whose subsystem is not ported."""
-    if cfg.index_shards != 1:
-        raise not_ported(f"index_shards={cfg.index_shards}",
-                          "sharded store")
     if cfg.query_cache:
         raise not_ported("the semantic query cache (query_cache=True)",
                           "serving caches")
@@ -59,10 +64,16 @@ def _quant_kw(cfg: EraRAGConfig) -> dict:
             "scan_bits": cfg.scan_bits, "scan_seed": cfg.seed}
 
 
-def make_store(graph, cfg: EraRAGConfig, device=None) -> VectorStore:
-    """The store ``cfg`` asks for: the single-buffer ``VectorStore``."""
+def make_store(graph, cfg: EraRAGConfig, device=None) -> AnyStore:
+    """cfg.index_shards: 1 -> the single-buffer store; > 1 -> that many
+    hash-routed shards; 0 -> one shard per device of the store's device
+    type (``torch.cuda.device_count()`` on the card, 1 on the CPU)."""
     _check_served(cfg)
-    return VectorStore(graph, device=device, **_quant_kw(cfg))
+    if cfg.index_shards == 1:
+        return VectorStore(graph, device=device, **_quant_kw(cfg))
+    return ShardedVectorStore(
+        graph, n_shards=cfg.index_shards or None, device=device,
+        collective=cfg.collective_query, **_quant_kw(cfg))
 
 
 class EraRAG:
@@ -86,8 +97,25 @@ class EraRAG:
         # (however many questions it serves) counts ONE round
         self.stats = {"retrieval_rounds": 0}
 
-    def reshard(self, n_shards: int):
-        raise not_ported("EraRAG.reshard", "sharded store")
+    def reshard(self, n_shards: int) -> AnyStore:
+        """Change the index shard count NOW (a synchronous epoch-swapped
+        migration: rows replay out of the live buffers, no
+        re-embedding, results bitwise-equal to a fresh build at the
+        target count).  Sharded-to-sharded migrations swap in place
+        (``self.store`` keeps its identity); ``n_shards == 1`` returns to
+        the single-buffer store, and a flat store reshards into a new
+        ``ShardedVectorStore``.  Either way ``self.store`` is the store
+        to use afterwards; its epoch, the first half of the cache token,
+        moves on by one."""
+        from repro_torch.lifecycle.reshard import Resharder
+        resharder = Resharder(device=self.device,
+                              collective=self.cfg.collective_query,
+                              **_quant_kw(self.cfg))
+        self.store = resharder.reshard(self.store, n_shards)
+        self.store.tracer = self.obs.tracer  # store may be a NEW object
+        self.cfg = dataclasses.replace(self.cfg,
+                                       index_shards=int(n_shards))
+        return self.store
 
     # ------------------------------------------------------------------
     def insert_docs(self, docs: Iterable[Tuple[str, str]]) -> UpdateReport:
@@ -189,8 +217,12 @@ class EraRAG:
                                         device=obj.device)
         obj.graph.tracer = obj.obs.tracer
         if "store" in state:
+            # cfg.index_shards is the desired layout (0 keeps the
+            # snapshot's); a disagreement with the snapshot replays
+            # through the lifecycle Resharder, never a full re-embed
             obj.store = store_from_state(state["store"], obj.graph,
                                          n_shards=cfg.index_shards,
+                                         collective=cfg.collective_query,
                                          device=obj.device,
                                          **_quant_kw(cfg))
         else:

@@ -24,7 +24,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.store import Hit, VectorStore
+from repro_torch.core.store import AnyStore, Hit
 from repro_torch.data.tokenizer import HashTokenizer
 
 
@@ -83,7 +83,7 @@ def _budgeted(graph, hits: Sequence[Hit], budget: int,
                      n_tokens=total)
 
 
-def collapsed_search_batch(graph, store: VectorStore, query_embs,
+def collapsed_search_batch(graph, store: AnyStore, query_embs,
                            k: int, token_budget: int,
                            tokenizer: Optional[HashTokenizer] = None
                            ) -> List[Retrieval]:
@@ -96,7 +96,7 @@ def collapsed_search_batch(graph, store: VectorStore, query_embs,
     return out
 
 
-def collapsed_search(graph, store: VectorStore, query_emb, k: int,
+def collapsed_search(graph, store: AnyStore, query_emb, k: int,
                      token_budget: int,
                      tokenizer: Optional[HashTokenizer] = None
                      ) -> Retrieval:
@@ -105,7 +105,7 @@ def collapsed_search(graph, store: VectorStore, query_emb, k: int,
         tokenizer)[0]
 
 
-def adaptive_search_batch(graph, store: VectorStore, query_embs,
+def adaptive_search_batch(graph, store: AnyStore, query_embs,
                           k: int, token_budget: int, p: float,
                           mode: str = "detailed",
                           tokenizer: Optional[HashTokenizer] = None
@@ -139,7 +139,7 @@ def adaptive_search_batch(graph, store: VectorStore, query_embs,
     return out
 
 
-def adaptive_search(graph, store: VectorStore, query_emb, k: int,
+def adaptive_search(graph, store: AnyStore, query_emb, k: int,
                     token_budget: int, p: float,
                     mode: str = "detailed",
                     tokenizer: Optional[HashTokenizer] = None
@@ -196,7 +196,7 @@ def default_bridge_fn(questions: Sequence[str],
     return out
 
 
-def multihop_search_batch(graph, store: VectorStore, embed,
+def multihop_search_batch(graph, store: AnyStore, embed,
                           questions: Sequence[str], k: int,
                           token_budget: int, p: float,
                           bridge_fn: Optional[BridgeFn] = None,

@@ -12,10 +12,15 @@ the scan's score chain over each query's own list of candidate rows
 ``rescore_grid``'s grid, no scratch), so a rescored score is bitwise the
 scan's score for that row.
 
+``merge_sharded_topk`` merges the sharded store's per-shard candidates
+into the global top-k by (score desc, sequence asc).  It is XLA in the
+JAX package, so here it is plain torch ops on the candidates' device.
+
 The launch counters live on the process-global obs registry
 (``kernels.mips_topk.launches``, ``kernels.mips_rescore.launches``) and
-count CUDA kernel launches only; per-store attribution of scans is
-``StoreStats.kernel_launches``.
+count CUDA kernel launches only; the merge counts its calls apart
+(``kernels.mips_topk.merge.launches``); per-store attribution of scans
+is ``StoreStats.kernel_launches``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,14 @@ MAX_K = 64          # k the CUDA kernel takes
 _LAUNCHES = global_registry().counter("kernels.mips_topk.launches")
 _RESCORE_LAUNCHES = global_registry().counter(
     "kernels.mips_rescore.launches")
+_MERGE_LAUNCHES = global_registry().counter(
+    "kernels.mips_topk.merge.launches")
+
+# per-shard candidate padding: a value below every real (or MASK_BIAS-
+# masked) score and a sequence number above every real row's, so padded
+# candidates merge last
+VAL_PAD = float(torch.finfo(torch.float32).min)
+SEQ_PAD = 2**31 - 1
 
 _SIGNATURES = {
     "mips_topk_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
@@ -47,6 +60,12 @@ _SIGNATURES = {
 def reset_launch_count() -> None:
     _LAUNCHES.reset()
     _RESCORE_LAUNCHES.reset()
+    _MERGE_LAUNCHES.reset()
+
+
+def merge_launch_count() -> int:
+    """``merge_sharded_topk`` calls since the last reset."""
+    return _MERGE_LAUNCHES.count
 
 
 def launch_count() -> int:
@@ -211,3 +230,27 @@ def flagged_mips_topk(q: torch.Tensor, db_flagged: torch.Tensor, k: int,
                          f"{len(flag_bias)} flags")
     return mips_topk(augment_queries(q, flag_bias).contiguous(),
                      db_flagged, k)
+
+
+def merge_sharded_topk(vals: torch.Tensor, seqs: torch.Tensor,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard top-k results: (s, b, kk) scores and int32
+    sequence numbers -> the global (b, k), by (score desc, sequence
+    asc), the JAX package's ``jnp.lexsort((seq, -val))``.
+
+    Ties break by the smaller sequence number, not by candidate
+    position, so when the sequence numbers carry the rows' global order
+    the result is bitwise a single scan's over the unsharded rows.
+    Candidates are sorted by sequence first, then stably by score; the
+    score key is ``v + 0.0``, which makes -0.0 and 0.0 one key, as the
+    JAX sort's canonicalised keys do."""
+    s, b, kk = vals.shape
+    flat_v = vals.transpose(0, 1).reshape(b, s * kk)
+    flat_s = seqs.transpose(0, 1).reshape(b, s * kk)
+    by_seq = torch.argsort(flat_s, dim=1, stable=True)
+    flat_v = flat_v.gather(1, by_seq)
+    flat_s = flat_s.gather(1, by_seq)
+    order = torch.argsort(flat_v + 0.0, dim=1, descending=True,
+                          stable=True)[:, :k]
+    _MERGE_LAUNCHES.inc()
+    return flat_v.gather(1, order), flat_s.gather(1, order)

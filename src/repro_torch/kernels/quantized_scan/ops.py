@@ -121,9 +121,19 @@ def encode_queries(q: torch.Tensor, planes: torch.Tensor,
     return torch.cat(groups, dim=1)
 
 
-def _two_stage(q_aug: torch.Tensor, q_codes: torch.Tensor,
-               db: torch.Tensor, codes: torch.Tensor, k: int,
-               n_coarse: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def prepare_queries(q: torch.Tensor, flag_bias: Tuple[float, ...],
+                    planes: torch.Tensor, spec: QuantSpec
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A query block's two inputs to ``two_stage_topk``: the augmented
+    fp32 queries and their codes.  The sharded store makes them once a
+    batch and scans every shard with them, as the JAX collective does."""
+    return (augment_queries(q, flag_bias).contiguous(),
+            encode_queries(q, planes, flag_bias, spec))
+
+
+def two_stage_topk(q_aug: torch.Tensor, q_codes: torch.Tensor,
+                   db: torch.Tensor, codes: torch.Tensor, k: int,
+                   n_coarse: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse top-C by (Hamming distance, row) -> exact rescore of each
     query's own C rows by (score desc, row asc)."""
     _, cand = hamming_topk(q_codes, codes, n_coarse)
@@ -143,7 +153,6 @@ def quantized_flagged_topk(q: torch.Tensor, db_flagged: torch.Tensor,
         (k, n_coarse, tuple(db_flagged.shape))
     assert tuple(codes.shape) == (db_flagged.shape[0], spec.n_words), \
         (tuple(codes.shape), tuple(db_flagged.shape), spec)
-    q_aug = augment_queries(q, flag_bias).contiguous()
-    qc = encode_queries(q, planes, flag_bias, spec)
-    return _two_stage(q_aug, qc, db_flagged, codes, int(k),
-                      int(n_coarse))
+    q_aug, qc = prepare_queries(q, flag_bias, planes, spec)
+    return two_stage_topk(q_aug, qc, db_flagged, codes, int(k),
+                          int(n_coarse))

@@ -713,10 +713,16 @@ def test_quantized_quickstart_on_card_matches_cpu(cuda):
     _quickstart_card_vs_cpu(cuda, quantized_scan=True)
 
 
-def _quickstart_card_vs_cpu(cuda, quantized_scan):
+@pytest.mark.parametrize("quantized_scan", [False, True])
+def test_sharded_quickstart_on_card_matches_cpu(cuda, quantized_scan):
+    _quickstart_card_vs_cpu(cuda, quantized_scan, index_shards=4)
+
+
+def _quickstart_card_vs_cpu(cuda, quantized_scan, index_shards=1):
     cfg = EraRAGConfig(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,
                        max_layers=3, chunk_tokens=32, top_k=8,
-                       token_budget=1024, quantized_scan=quantized_scan)
+                       token_budget=1024, quantized_scan=quantized_scan,
+                       index_shards=index_shards)
     corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
     init, rounds = corpus.growth_rounds(0.5, 5)
     gpu = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)
@@ -735,6 +741,152 @@ def _quickstart_card_vs_cpu(cuda, quantized_scan):
             np.testing.assert_allclose([h.score for h in a.hits],
                                        [h.score for h in b.hits],
                                        rtol=0, atol=SCORE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the sharded store: every kernel on a slot view, the merge, the store
+# ---------------------------------------------------------------------------
+
+# (slots, capacity, row width): slot 2 of a stacked buffer starts
+# 2 * cap * width * 4 bytes in, 16-byte aligned for the store's
+# power-of-two capacities and 4- or 8-byte aligned for the odd ones
+SLOT_CASES = [(4, 4096, 259), (4, 77, 259), (3, 1031, 64), (8, 640, 131)]
+
+
+def _slot_view(stack, slot):
+    view = stack[slot]
+    assert view.is_contiguous() and view.storage_offset() > 0
+    assert view.data_ptr() == stack.data_ptr() + \
+        slot * view.numel() * stack.element_size()
+    return view
+
+
+@pytest.mark.parametrize("s,cap,w", SLOT_CASES)
+def test_mips_topk_on_a_slot_view(cuda, s, cap, w):
+    rng = np.random.default_rng(cap + w)
+    stack = torch.from_numpy(
+        rng.standard_normal((s, cap, w)).astype(np.float32)).to(cuda)
+    stack[2, 5] = stack[2, 9]                  # a tie inside the slot
+    q = torch.from_numpy(_unit_rows(rng, 16, w)).to(cuda)
+    view = _slot_view(stack, 2)
+    before = mips_ops.launch_count()
+    vals, idx = mips_ops.mips_topk(q, view, 8)
+    assert mips_ops.launch_count() == before + 1
+    want_v, want_i = mips_ops.mips_topk(q, view.clone(), 8)
+    assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+
+
+@pytest.mark.parametrize("s,cap,w", SLOT_CASES)
+def test_lsh_hash_on_a_slot_view(cuda, s, cap, w):
+    rng = np.random.default_rng(cap + w + 1)
+    stack = torch.from_numpy(
+        rng.standard_normal((s, cap, w)).astype(np.float32)).to(cuda)
+    h = torch.from_numpy(
+        rng.standard_normal((w, 64)).astype(np.float32)).to(cuda)
+    view = _slot_view(stack, 2)
+    before = lsh_ops.launch_count()
+    got = lsh_ops.lsh_hash(view, h)
+    assert lsh_ops.launch_count() == before + 1
+    assert torch.equal(got, lsh_ops.lsh_hash(view.clone(), h))
+
+
+@pytest.mark.parametrize("s,cap,w", [(4, 4096, 11), (4, 77, 11),
+                                     (3, 1031, 2), (8, 640, 67)])
+@pytest.mark.parametrize("c", [32, 200])
+def test_hamming_topk_on_a_slot_view(cuda, s, cap, w, c):
+    qc, dbc = _ham_codes(9, s * cap, w, cap + w + c)
+    qt, flat = _ham_to(cuda, qc, dbc)
+    view = _slot_view(flat.view(s, cap, w), 2)
+    c = min(c, cap)
+    route = "list" if c <= ham_ops.LIST_MAX_C else "count"
+    dist, idx = _ham_call(qt, view, c, route)
+    d2, i2 = _ham_call(qt, view.clone(), c, route)
+    assert torch.equal(dist, d2) and torch.equal(idx, i2)
+
+
+@pytest.mark.parametrize("s,cap,w", SLOT_CASES)
+@pytest.mark.parametrize("c", [32, 300])
+def test_mips_rescore_on_a_slot_view(cuda, s, cap, w, c):
+    rng = np.random.default_rng(cap + w + c)
+    stack = torch.from_numpy(_unit_rows(rng, s * cap, w)).to(cuda)
+    view = _slot_view(stack.view(s, cap, w), 2)
+    q = torch.from_numpy(_unit_rows(rng, 16, w)).to(cuda)
+    c = min(c, cap)
+    cand = torch.from_numpy(np.stack(
+        [rng.permutation(cap)[:c] for _ in range(16)]).astype(
+            np.int32)).to(cuda)
+    vals, idx = _rescore_call(q, view, cand, 8)
+    v2, i2 = _rescore_call(q, view.clone(), cand, 8)
+    assert torch.equal(vals, v2) and torch.equal(idx, i2)
+
+
+@pytest.mark.parametrize("s,b,kk,k", [(4, 64, 8, 8), (8, 64, 8, 8),
+                                      (4, 3, 64, 64), (2, 1, 5, 7)])
+def test_merge_on_card_matches_cpu(cuda, s, b, kk, k):
+    rng = np.random.default_rng(s * b + kk)
+    vals = rng.choice(np.float32([0.5, 0.25, 0.0, -0.0, -3e30]),
+                      size=(s, b, kk)).astype(np.float32)
+    seqs = rng.permutation(s * b * kk).reshape(s, b, kk).astype(np.int32)
+    vals[-1, :, kk // 2:] = mips_ops.VAL_PAD
+    seqs[-1, :, kk // 2:] = mips_ops.SEQ_PAD
+    k = min(k, s * kk)
+    tv, ts = torch.from_numpy(vals), torch.from_numpy(seqs)
+    gv, gs = mips_ops.merge_sharded_topk(tv.to(cuda), ts.to(cuda), k)
+    cv, cs = mips_ops.merge_sharded_topk(tv, ts, k)
+    assert torch.equal(gs.cpu(), cs)
+    assert torch.equal(gv.cpu().view(torch.int32), cv.view(torch.int32))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_sharded_store_on_card_is_the_flat_store(cuda, quantized):
+    """Growth, removal and re-insertion at 1, 3 and 8 shards: every hit
+    equal to the flat store's on the card, score bits included; the
+    sharded loop launches its kernels once a non-empty shard."""
+    from repro_torch.core.store import ShardedVectorStore, VectorStore
+    cfg = EraRAGConfig(embed_dim=128, n_hyperplanes=10, s_min=4,
+                       s_max=12, max_layers=3, chunk_tokens=32, top_k=8,
+                       token_budget=1024, index_shards=3,
+                       quantized_scan=quantized, coarse_mult=10 ** 6)
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 3)
+    rag = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)
+    flat = VectorStore(rag.graph, device=cuda)
+    q = np.asarray(rag.embedder.encode(
+        [qa.question for qa in corpus.qa[:16]]), np.float32)
+
+    def same():
+        for filt in (None, "leaf", "summary"):
+            a = rag.store.search_batch(q, 8, filt)
+            b = flat.search_batch(q, 8, filt)
+            assert [[(h.node_id, h.layer, h.seq,
+                      np.float32(h.score).view(np.uint32)) for h in x]
+                    for x in a] == \
+                [[(h.node_id, h.layer, h.seq,
+                   np.float32(h.score).view(np.uint32)) for h in x]
+                 for x in b]
+
+    for docs in [init] + rounds:
+        rag.insert_docs(docs)
+        same()
+    victims = sorted({d for d, _ in rounds[-1]})
+    rag.remove_docs(victims)
+    same()
+    rag.insert_docs(rounds[-1])
+    same()
+    for n in (8, 1, 3):
+        rag.reshard(n)
+        same()
+    assert isinstance(rag.store, ShardedVectorStore)
+    mips_ops.reset_launch_count()
+    ham_ops.reset_launch_count()
+    rag.store.search_batch(q, 8)
+    non_empty = sum(sh.count > 0 for sh in rag.store._shards)
+    if quantized:
+        assert ham_ops.launch_count() == non_empty
+        assert mips_ops.rescore_launch_count() == non_empty
+    else:
+        assert mips_ops.launch_count() == non_empty
+    assert mips_ops.merge_launch_count() == 1
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from repro.serving.rag_pipeline import RAGPipeline as JaxPipeline
 
 from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
-from repro_torch.core.store import VectorStore, store_from_state
+from repro_torch.core.store import VectorStore
 from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.kernels.mips_topk import ops as mips_ops
 from repro_torch.kernels.quantized_scan import ops as tq
@@ -310,16 +310,6 @@ def test_state_roundtrip_and_reference_snapshot():
     jback = JaxStore.from_state(state, g)
     assert jback.quantized
     assert [_scored(h) for h in jback.search_batch(queries, 6)] == want
-
-
-def test_sharded_quantized_still_raises():
-    g, _ = _grown_graph(np.random.default_rng(0), 10)
-    with pytest.raises(NotImplementedError, match="sharded store"):
-        store_from_state({"kind": "sharded", "quant": {"quantized": True}},
-                         g, device="cpu")
-    cfg = EraRAGConfig(quantized_scan=True, index_shards=2)
-    with pytest.raises(NotImplementedError, match="sharded store"):
-        EraRAG(cfg, HashingEmbedder(dim=cfg.embed_dim), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from repro_torch.core.erarag import EraRAG
 from repro_torch.core.graph import EraGraph
 from repro_torch.core.lsh import HyperplaneLSH
 from repro_torch.core.partition import partition_items
-from repro_torch.core.store import VectorStore, store_from_state
+from repro_torch.core.store import VectorStore
 from repro_torch.data.chunker import chunk_corpus
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.data.tokenizer import HashTokenizer
@@ -139,8 +139,6 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"index_shards": 2}, {"index_shards": 0},
-    {"quantized_scan": True, "index_shards": 2},   # a sharded code plane
     {"query_cache": True}, {"reshard_skew_threshold": 1.5}])
 def test_unported_options_raise(kw):
     cfg = dataclasses.replace(ERARAG_DEFAULT, embed_dim=16, **kw)
@@ -156,8 +154,4 @@ def test_unported_serving_and_store_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RAGPipeline(rag).index_report()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rag.reshard(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         rag.store.attach_lifecycle(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        store_from_state({"kind": "sharded"}, rag.graph, device="cpu")
