@@ -90,6 +90,48 @@ package.  Phases, each printing one JSON line:
                  to 4 (its kernels' launches; ``hamming_topk`` on the
                  list route only), equal to the exact sharded store at
                  C = capacity.
+6c. ``baselines`` the paper's comparison systems on the card, each
+                 over a 50 % build and 5 growth rounds: ``VanillaRAG``
+                 on the main path's corpus (25015 chunks, d = 256), and
+                 ``BM25``, ``RaptorLike``, ``GraphRAGLike`` and an
+                 ``EraRAG`` on a cut corpus of 500 documents (they
+                 rebuild everything on the host every round; printed as
+                 ``reduced``).  Seconds and tokens a round; 64 questions
+                 asked one at a time (ms a question, ``mips_topk``
+                 launches: one a question for the dense systems and the
+                 ``EraRAG``, none for BM25); every dense scan against
+                 the plain scan of the same device embeddings, and the
+                 ``EraRAG``'s flagged scans against theirs (each b = 1
+                 row bitwise its batch row); the b = 1 scan at
+                 VanillaRAG's shape
+                 (event and device ms, byte bound, plain and
+                 ``torch.topk(q @ db.T)`` times).
+6d. ``query_cache`` the main path's index restored through
+                 ``state_dict(include_store=True)``/``from_state`` with
+                 ``query_cache=True``: a cold 64-question batch in each
+                 mode equal to the cache-off store's (score bits
+                 included), the same batch warm (no retrieval round, no
+                 launch), 32 repeats + 32 new questions (one sweep of
+                 the 32 misses), and an insert burst (the token moves,
+                 the next batch misses entirely and equals a cache-off
+                 store on the same graph).  The sweeps' scans (b = 32
+                 and 64) against the plain scan.  Cold and warm
+                 batches/s: medians of 10 batches a mode, with quartiles
+                 (the cache cleared before each cold one).
+6e. ``ingest``   two indexes restored at the main path's final state:
+                 500 fresh documents and one removal through
+                 ``IngestService`` (a 64-question ``query_batch`` after
+                 every tick) against ``insert_docs``/``remove_docs`` on
+                 the twin: node ids, store rows (bytes) and hits equal;
+                 one ``lsh_hash`` launch an embed tick, and the kernel
+                 at the ticks' shapes (n = 64 and the last tick's n,
+                 k = 12) against the plain hash on the rows they hashed;
+                 ticks by stage, median and max tick ms; each batch after
+                 a tick paired with the same batch again back to back,
+                 and the batch with the queue idle.
+6f. ``index_report`` the ingest phase's ``RAGPipeline.index_report``:
+                 its sections, key counts and ``to_prometheus()`` length;
+                 its numbers equal to the live objects'.
     ``sharded_2_22`` 2^22 rows hash-routed into 4 slots of one stacked
                  buffer (capacity the largest slot): the per-slot
                  ``mips_topk`` scans plus the merge against
@@ -123,7 +165,9 @@ package.  Phases, each printing one JSON line:
                  (plain versions); losses and weights must agree, and
                  the card's fp32 attention must have run on the FMA
                  kernels only.
-10. ``kernels``  one line listing every kernel with its numbers.
+10. ``kernels``  one line listing every kernel with its numbers (the
+                 ``lsh_hash`` and ``mips_topk`` entries with the
+                 launches of phases 6c-6e beside the main path's).
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -1256,6 +1300,512 @@ def run_sharded_path(corpus, rag, rag_q, questions):
     return launches, launches_q
 
 
+# ---------------------------------------------------------------------------
+# phases 6c-6f: the retrieval front without an LM
+# ---------------------------------------------------------------------------
+
+# the baselines that rebuild everything on the host every round run on
+# this cut of the main path's corpus (same schedule): GraphRAG's label
+# propagation is pure Python over every pair of chunks that share an
+# entity, and RAPTOR re-embeds, re-clusters and re-summarizes the whole
+# corpus each round
+BASELINE_CUT_DOCS = 500
+N_ONE_AT_A_TIME = 64
+
+
+def baseline_scan_case(q, embs, k, label):
+    """``mips_topk`` at b = 1 on a baseline's embedding matrix against
+    its plain version and ``torch.topk(q @ db.T)``."""
+    from repro_torch.kernels.mips_topk import ops
+    from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
+
+    b, d = q.shape
+    n = embs.shape[0]
+    vals, idx = ops.mips_topk(q, embs, k)
+    pv, pi = mips_topk_ref(q, embs, min(k + 1, n))
+    torch.cuda.synchronize()
+    max_err = float((vals - pv[:, :k]).abs().max())
+    check(max_err <= SCORE_TOL,
+          f"{label}: score error {max_err} > {SCORE_TOL}")
+    ms = time_ms(lambda: ops.mips_topk(q, embs, k), reps=20)
+    plain_ms = time_ms(lambda: mips_topk_ref(q, embs, k), reps=10)
+    library_ms = time_ms(lambda: torch.topk(q @ embs.T, k), reps=20)
+    kernels = kernel_ms(lambda: ops.mips_topk(q, embs, k))
+    bound_ms, bound_by = bound(4.0 * (n * d + b * d) + 8.0 * b * k,
+                               2.0 * b * n * d)
+    return {"shape": {"b": b, "n": n, "d": d, "k": k},
+            "max_abs_err": max_err, "kernel_ms": ms,
+            "kernel_device_ms": kernels,
+            "device_ms": sum(kernels.values()),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": device_ms(
+                lambda: torch.topk(q @ embs.T, k)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def _one_at_a_time(system, questions):
+    """ms per question of ``system.query`` asked one at a time, and the
+    ``mips_topk`` launches of those questions."""
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    before = mips_ops.launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rets = [system.query(q) for q in questions]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(questions) * 1e3
+    return rets, ms, mips_ops.launch_count() - before
+
+
+def _scans_against_plain(system, rets, questions, label):
+    """Each question's card scan (``mips_topk`` at b = 1, the one its
+    hits came from) against the plain scan of the same device
+    embeddings: ids and order equal, except where a plain neighbour
+    score lies within ``SCORE_TOL`` (a near-tie the two summation
+    orders may swap); every hit is a row of its scan, in scan order.
+    Returns (max score error, ids that differ at near-ties)."""
+    from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+    embs = system._embs
+    k = min(system.cfg.top_k, embs.shape[0])
+    ids = [c.chunk_id for c in system.chunks] \
+        if hasattr(system, "chunks") else system.ids
+    q = torch.from_numpy(np.asarray(system.embedder.encode(questions),
+                                    np.float32)).cuda()
+    pv, pi = mips_topk_ref(q, embs, min(k + 1, embs.shape[0]))
+    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+    max_err, near_diffs = 0.0, 0
+    for j, (text, r) in enumerate(zip(questions, rets)):
+        vals, idx = system._scan(text, k)
+        max_err = max(max_err, float(np.abs(vals - pv[j, :k]).max()))
+        for t in np.nonzero(idx != pi[j, :k])[0]:
+            near = any(abs(pv[j, t] - pv[j, u]) <= SCORE_TOL
+                       for u in (t - 1, t + 1) if 0 <= u < pv.shape[1])
+            check(near, f"{label}: question {j} row {t} differs from the "
+                        f"plain scan away from a near-tie")
+            near_diffs += 1
+        scan_ids = iter(ids[int(i)] for i in idx)
+        check(all(h.node_id in scan_ids for h in r.hits),
+              f"{label}: question {j}'s hits are not its scan's rows")
+    check(max_err <= SCORE_TOL, f"{label}: score error {max_err}")
+    return max_err, near_diffs
+
+
+def _flagged_scans_against_plain(rag, rets, questions, label):
+    """An ``EraRAG``'s questions asked one at a time: ``mips_case`` holds
+    the flagged scan of all of them against the plain scan and each
+    b = 1 scan bitwise against its batch row; each question's hits are
+    rows of its scan, in scan order."""
+    from repro_torch.core.store import _filter_bias
+    from repro_torch.kernels.mips_topk import ops
+
+    store, k = rag.store, rag.cfg.top_k
+    q = torch.from_numpy(np.asarray(rag.embedder.encode(questions),
+                                    np.float32)).cuda()
+    case = mips_case(q, store._s.buf, k, _filter_bias(None), label)
+    _, idx = ops.flagged_mips_topk(q, store._s.buf, k, _filter_bias(None))
+    for j, (row, r) in enumerate(zip(idx.cpu().tolist(), rets)):
+        scan_ids = iter(store._s.row_ids[i] for i in row)
+        check(all(h.node_id in scan_ids for h in r.hits),
+              f"{label}: question {j}'s hits are not its scan's rows")
+    return case
+
+
+def run_baselines(corpus, path_launches):
+    """The paper's comparison systems on the card: ``VanillaRAG`` on the
+    main path's corpus and schedule, the others and an ``EraRAG`` on
+    the cut corpus; seconds and tokens per round, 64 questions one at a
+    time, and the b = 1 scan at the vanilla shape."""
+    from repro_torch.configs.erarag import ERARAG_DEFAULT
+    from repro_torch.core import baselines
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+
+    t_phase = time.perf_counter()
+    cut = SyntheticCorpus.generate(n_docs=BASELINE_CUT_DOCS, n_topics=64,
+                                   seed=0)
+    schedules = {"main": corpus, "cut": cut}
+    plan = (("VanillaRAG", "main"), ("BM25", "cut"), ("RaptorLike", "cut"),
+            ("GraphRAGLike", "cut"), ("EraRAG", "cut"))
+    out = {}
+    vanilla = None
+    for name, which in plan:
+        src = schedules[which]
+        init, rounds = src.growth_rounds(0.5, 5)
+        questions = [qa.question for qa in src.qa[:N_ONE_AT_A_TIME]]
+        cls = EraRAG if name == "EraRAG" else getattr(baselines, name)
+        system = cls(ERARAG_DEFAULT, HashingEmbedder(dim=256),
+                     device="cuda")
+        round_s, round_tokens = [], []
+        for docs in [init] + rounds:
+            t0 = time.perf_counter()
+            rep = path_launches.drive(lambda: system.insert_docs(docs))
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            round_tokens.append(rep.tokens_total)
+        system.query(questions[0])                      # warm-up
+        rets, q_ms, launches = path_launches.drive(
+            lambda: _one_at_a_time(system, questions))
+        check(all(r.hits for r in rets), f"baselines {name}: no hits")
+        row = {"corpus_docs": len(src.docs), "round_s": round_s,
+               "round_tokens": round_tokens,
+               "ms_per_question": q_ms, "mips_topk_launches": launches}
+        want_launches = 0 if name == "BM25" else len(questions)
+        check(launches == want_launches,
+              f"baselines {name}: {launches} mips_topk launches for "
+              f"{len(questions)} questions")
+        if name in ("VanillaRAG", "RaptorLike", "GraphRAGLike"):
+            err, near = _scans_against_plain(system, rets, questions,
+                                             f"baselines {name}")
+            row.update(rows=int(system._embs.shape[0]),
+                       max_abs_err_vs_plain=err,
+                       ids_differing_at_near_ties=near)
+        elif name == "EraRAG":
+            case = _flagged_scans_against_plain(system, rets, questions,
+                                                "baselines EraRAG")
+            row.update(rows=case["shape"]["n"],
+                       max_abs_err_vs_plain=case["max_abs_err"],
+                       ids_differing_at_near_ties=case[
+                           "ids_differing_at_near_ties"],
+                       # the batch of its questions; each b = 1 row
+                       # is held bitwise against it
+                       scan_b64={k: case[k] for k in (
+                           "shape", "kernel_ms", "device_ms", "bound_ms",
+                           "bound_by", "plain_ms", "library_ms")})
+        if name == "VanillaRAG":
+            vanilla = system
+        else:
+            del system
+        out[name] = row
+    q = torch.from_numpy(np.asarray(vanilla.embedder.encode(
+        [corpus.qa[0].question]), np.float32)).cuda()
+    scan = baseline_scan_case(q, vanilla._embs, vanilla.cfg.top_k,
+                              "baselines b=1 scan")
+    del vanilla
+    torch.cuda.empty_cache()
+    emit("baselines", systems=out, b1_scan_at_vanilla_shape=scan,
+         reduced={"cut_corpus_docs": BASELINE_CUT_DOCS,
+                  "systems": ["BM25", "RaptorLike", "GraphRAGLike",
+                              "EraRAG"],
+                  "why": "these rebuild on the host every round "
+                         "(GraphRAG's label propagation is pure Python "
+                         "over every pair of chunks sharing an entity)"},
+         seconds=time.perf_counter() - t_phase)
+    return scan
+
+
+CACHE_REPS = 10   # cold and warm batches timed per mode
+
+
+def _rate_spread(seconds):
+    """Batches/s of a list of batch times: the median's, and the
+    quartiles' (slowest quartile first)."""
+    q1, _, q3 = statistics.quantiles(seconds, n=4)
+    return {"median": 1.0 / statistics.median(seconds),
+            "q3_q1": [1.0 / q3, 1.0 / q1]}
+
+
+def _cache_off_hits(rag, store, questions, mode, seqs):
+    """``rag``'s batch served by ``store`` with the cache switched off."""
+    keep = rag.store, rag.query_cache
+    rag.store, rag.query_cache = store, None
+    try:
+        return [_bits_key(r.hits, seqs)
+                for r in rag.query_batch(questions, mode=mode)]
+    finally:
+        rag.store, rag.query_cache = keep
+
+
+def run_query_cache(corpus, rag, questions, path):
+    """The main path's index restored with ``query_cache=True``: cold
+    batches equal the cache-off store, warm batches launch nothing, a
+    half-new batch sweeps its misses once, an insert burst moves the
+    token."""
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.core.store import VectorStore, _filter_bias
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+
+    def encode(qs):
+        return torch.from_numpy(np.asarray(rag.embedder.encode(qs),
+                                           np.float32)).cuda()
+
+    t_phase = time.perf_counter()
+    state = rag.state_dict(include_store=True)
+    state["cfg"] = dict(state["cfg"], query_cache=True)
+    t0 = time.perf_counter()
+    rag_c = EraRAG.from_state(state, HashingEmbedder(dim=256),
+                              device="cuda")
+    restore_s = time.perf_counter() - t0
+    check(rag_c.store.size == rag.store.size, "query cache: restore")
+
+    def timed_batch(qs, mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rets = path.drive(lambda: rag_c.query_batch(qs, mode=mode))
+        torch.cuda.synchronize()
+        return rets, time.perf_counter() - t0
+
+    # each mode: CACHE_REPS cold batches (the cache cleared before each)
+    # then CACHE_REPS warm ones; the batch times are their medians
+    cold, warm = {}, {}
+    warm_launches = 0
+    for mode in MODES:
+        want = [_bits_key(r.hits)
+                for r in rag.query_batch(questions, mode=mode)]
+        cold[mode], warm[mode] = [], []
+        for _ in range(CACHE_REPS):
+            rag_c.query_cache.clear()
+            rets, s = timed_batch(questions, mode)
+            cold[mode].append(s)
+            check([_bits_key(r.hits) for r in rets] == want,
+                  f"query cache: cold {mode} batch differs from the "
+                  f"cache-off store")
+        for _ in range(CACHE_REPS):
+            before = dict(path.counts)
+            rounds = rag_c.stats["retrieval_rounds"]
+            rets, s = timed_batch(questions, mode)
+            warm[mode].append(s)
+            check([_bits_key(r.hits) for r in rets] == want,
+                  f"query cache: warm {mode} batch differs")
+            warm_launches += sum(path.counts.values()) - \
+                sum(before.values())
+            check(rag_c.stats["retrieval_rounds"] == rounds and
+                  path.counts == before,
+                  f"query cache: the warm {mode} batch launched a kernel")
+    # the cold batches above cleared each mode's entries; fill the
+    # collapsed ones again, then 32 repeats and 32 new questions: one
+    # sweep of the 32 misses
+    path.drive(lambda: rag_c.query_batch(questions, mode="collapsed"))
+    seen = set(questions)
+    new_qs = list(dict.fromkeys(qa.question for qa in corpus.qa[64:]
+                                if qa.question not in seen))[:32]
+    half = questions[:32] + new_qs
+    stats = rag_c.query_cache.stats
+    before = (dict(path.counts), rag_c.stats["retrieval_rounds"],
+              stats.misses, stats.hits_exact)
+    rets, half_s = timed_batch(half, "collapsed")
+    check(rag_c.stats["retrieval_rounds"] == before[1] + 1 and
+          path.counts["mips_topk"] == before[0]["mips_topk"] + 1 and
+          stats.misses == before[2] + 32 and
+          stats.hits_exact == before[3] + 32,
+          "query cache: a half-new batch is not one sweep of its misses")
+    check([_bits_key(r.hits) for r in rets] ==
+          [_bits_key(r.hits)
+           for r in rag.query_batch(half, mode="collapsed")],
+          "query cache: half-new batch differs")
+    # the sweep's scan at its shape (b = 32, the new questions' rows)
+    # against the plain scan
+    half_scan = mips_case(encode(new_qs), rag_c.store._s.buf,
+                          rag_c.cfg.top_k, _filter_bias(None),
+                          "query cache half-new sweep")
+    # an insert burst: the token moves, the next batch misses entirely
+    burst = SyntheticCorpus.generate(n_docs=50, n_topics=64, seed=3).docs
+    burst = [(f"qc-{d}", text) for d, text in burst]
+    token = rag_c.store.cache_token
+    t0 = time.perf_counter()
+    path.drive(lambda: rag_c.insert_docs(burst))
+    burst_s = time.perf_counter() - t0
+    check(rag_c.store.cache_token != token, "query cache: token stuck")
+    misses = stats.misses
+    rets, after_s = timed_batch(questions, "collapsed")
+    check(stats.misses == misses + len(questions) and
+          stats.invalidations >= 1,
+          "query cache: the batch after the burst hit a stale entry")
+    tracker = VectorStore(rag_c.graph, device="cuda")
+    check([_bits_key(r.hits, False) for r in rets] ==
+          _cache_off_hits(rag_c, tracker, questions, "collapsed", False),
+          "query cache: after the burst, hits differ from a cache-off "
+          "store on the same graph")
+    after_scan = mips_case(encode(questions), rag_c.store._s.buf,
+                           rag_c.cfg.top_k, _filter_bias(None),
+                           "query cache after the burst")
+    del tracker, rag_c
+    torch.cuda.empty_cache()
+    scan_keys = ("shape", "max_abs_err", "ids_differing_at_near_ties",
+                 "batch_invariant", "kernel_ms", "device_ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_by")
+    emit("query_cache", restore_s=restore_s, query_batch=len(questions),
+         reps=CACHE_REPS,
+         cold_batches_per_s={m: _rate_spread(t) for m, t in cold.items()},
+         warm_batches_per_s={m: _rate_spread(t) for m, t in warm.items()},
+         warm_over_cold={m: statistics.median(cold[m]) /
+                         statistics.median(warm[m]) for m in MODES},
+         warm_launches=warm_launches, half_new_batch_s=half_s,
+         half_new_sweep_scan={k: half_scan[k] for k in scan_keys},
+         after_burst_scan={k: after_scan[k] for k in scan_keys},
+         burst_docs=len(burst), burst_insert_s=burst_s,
+         after_burst_batch_s=after_s, cache_stats=stats.to_dict(),
+         launches=dict(path.counts), hits_bitwise_equal=True,
+         seconds=time.perf_counter() - t_phase)
+    return dict(path.counts)
+
+
+def run_ingest(rag, questions, path):
+    """Two indexes at the main path's final state: a fresh burst and a
+    removal through ``IngestService`` (ticks between query batches)
+    against the same through ``insert_docs``/``remove_docs``."""
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+    from repro_torch.ingest import IngestService
+    from repro_torch.kernels.lsh_hash import ops as lsh_ops
+    from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
+    from repro_torch.serving.rag_pipeline import RAGPipeline
+
+    t_phase = time.perf_counter()
+    state = rag.state_dict(include_store=True)
+    live = EraRAG.from_state(state, HashingEmbedder(dim=256),
+                             device="cuda")
+    twin = EraRAG.from_state(state, HashingEmbedder(dim=256),
+                             device="cuda")
+    burst = SyntheticCorpus.generate(n_docs=500, n_topics=64, seed=1).docs
+    burst = [(f"s1-{d}", text) for d, text in burst]
+    victim = burst[7][0]
+
+    def batch_ms(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.query_batch(questions)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the same batch with the queue empty, on the index the ticks start
+    # from, before any tick runs
+    idle_before_ms = [batch_ms(live) for _ in range(20)]
+    svc = IngestService(live)
+    pipe = RAGPipeline(live, ingest=svc)
+    svc.submit_many(burst)
+    svc.remove([victim])
+
+    # after each tick: one batch, then the same batch again with no tick
+    # in between (a pair on the same index)
+    tick_ms, per_embed_tick, tick_rows = {}, [], []
+    between_ms, back_to_back_ms = [], []
+    while not svc.idle:
+        before = lsh_ops.launch_count()
+        op = svc._ops[0]
+        n_pre = len(getattr(op, "pre", ()))
+        t0 = time.perf_counter()
+        stage = path.drive(svc.tick)
+        torch.cuda.synchronize()
+        tick_ms.setdefault(stage, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        if stage == "embed":
+            per_embed_tick.append(lsh_ops.launch_count() - before)
+            tick_rows.append(list(op.pre.values())[n_pre:])
+        between_ms.append(path.drive(lambda: batch_ms(live)))
+        back_to_back_ms.append(path.drive(lambda: batch_ms(live)))
+    check(per_embed_tick and set(per_embed_tick) == {1},
+          f"ingest: lsh_hash launches per embed tick {set(per_embed_tick)}")
+    check(path.counts["lsh_hash"] > 0, "ingest: lsh_hash never launched")
+    # the kernel at the embed ticks' shapes (a full tick and the last,
+    # shorter one; k = 12) against its plain version on the rows those
+    # ticks hashed, and the keys the ticks kept against the plain codes
+    h = torch.from_numpy(live.graph.lsh.hyperplanes).cuda()
+    tick_cases = {}
+    for rows in (tick_rows[0], tick_rows[-1]):
+        v = torch.from_numpy(np.stack([e for e, _ in rows])).cuda()
+        kept = np.array([key for _, key in rows], np.uint64)
+        kept = torch.from_numpy(kept.astype(np.uint32).view(np.int32)
+                                .reshape(-1, 1)).cuda()
+        label = f"ingest embed tick n={v.shape[0]}"
+        flips, _ = lsh_flips(kept, lsh_hash_ref(v, h), v, h, label)
+        tick_cases[v.shape[0]] = dict(lsh_case(v, h, label),
+                                      kept_keys_bits_flipped=flips)
+    check([k for k, _ in svc.committed_ops] == ["insert", "remove"],
+          f"ingest: committed ops {svc.committed_ops[:2]}")
+    t0 = time.perf_counter()
+    twin.insert_docs(burst)
+    twin.store.refresh()
+    twin.remove_docs([victim])
+    twin.store.refresh()
+    twin_s = time.perf_counter() - t0
+    check(list(live.graph.nodes) == list(twin.graph.nodes),
+          "ingest: node ids differ from the synchronous twin")
+    a = live.store.state_dict()["shard"]
+    b = twin.store.state_dict()["shard"]
+    check(np.asarray(a["buf"]).tobytes() == np.asarray(b["buf"]).tobytes()
+          and a["row_ids"] == b["row_ids"]
+          and np.array_equal(a["row_seq"], b["row_seq"]),
+          "ingest: store rows differ from the synchronous twin")
+    for mode in MODES:
+        check([_bits_key(r.hits)
+               for r in live.query_batch(questions, mode=mode)] ==
+              [_bits_key(r.hits)
+               for r in twin.query_batch(questions, mode=mode)],
+              f"ingest: {mode} hits differ from the synchronous twin")
+    idle_after_ms = [batch_ms(live) for _ in range(20)]
+    del twin
+    per_tick = sorted(set(per_embed_tick))
+    scan_keys = ("shape", "grid", "bits_flipped", "max_abs_err",
+                 "kept_keys_bits_flipped", "kernel_ms", "device_ms",
+                 "plain_ms", "bound_ms", "bound_by")
+    emit("ingest", burst_docs=len(burst), removed=[victim],
+         ticks={s: len(t) for s, t in tick_ms.items()},
+         lsh_hash_launches_per_embed_tick=per_tick,
+         embed_tick_lsh_hash={n: {k: c[k] for k in scan_keys}
+                              for n, c in tick_cases.items()},
+         tick_ms={s: {"median": statistics.median(t), "max": max(t)}
+                  for s, t in tick_ms.items()},
+         query_batch_ms={
+             name: _ms_spread(t) for name, t in (
+                 ("after_a_tick", between_ms),
+                 ("back_to_back", back_to_back_ms),
+                 ("idle_before", idle_before_ms),
+                 ("idle_after", idle_after_ms))},
+         after_tick_over_back_to_back_median=statistics.median(
+             a / b for a, b in zip(between_ms, back_to_back_ms)),
+         sync_twin_s=twin_s, service=svc.report(),
+         launches=dict(path.counts), bitwise_equal_sync=True,
+         seconds=time.perf_counter() - t_phase)
+    return pipe, dict(path.counts), per_tick
+
+
+def _ms_spread(ms):
+    q1, q2, q3 = statistics.quantiles(ms, n=4)
+    return {"median": q2, "q1_q3": [q1, q3], "max": max(ms), "n": len(ms)}
+
+
+def run_index_report(pipe):
+    """The ingest phase's pipeline's ``index_report``: its sections,
+    key counts and Prometheus text, its numbers against the live
+    objects."""
+    from repro_torch.lifecycle.report import ShardLoadReport
+    from repro_torch.obs.schema import flatten_numeric, undeclared
+
+    t_phase = time.perf_counter()
+    rag = pipe.rag
+    rep = pipe.index_report()
+    prom = rag.obs.registry.to_prometheus()
+    check(undeclared(rep) == [], f"index_report: undeclared "
+                                 f"{undeclared(rep)}")
+    live = {"size": rag.store.size, "epoch": rag.store.epoch,
+            "retrieval_rounds": rag.stats["retrieval_rounds"]}
+    check({k: rep[k] for k in live} == live, "index_report: scalars")
+    check(rep["launches"]["retrieval_rounds"] ==
+          rag.stats["retrieval_rounds"] and
+          rep["stats"]["kernel_launches"] ==
+          rag.store.stats.kernel_launches and
+          rep["launches"]["embedder"] == rag.graph.embedder.stats and
+          rep["launches"]["summarizer"] == rag.graph.stats and
+          rep["ingest"]["service"] == pipe.ingest.report() and
+          rep["load"] == ShardLoadReport.from_store(rag.store).to_dict(),
+          "index_report: a section differs from its live object")
+    flat = flatten_numeric(rep)
+    emit("index_report",
+         sections={k: len(flatten_numeric(v)) if isinstance(v, dict)
+                   else 1 for k, v in rep.items()},
+         numeric_keys=len(flat), prometheus_chars=len(prom),
+         prometheus_lines=prom.count("\n"),
+         store_size=rep["size"], kernel_launches=rep["stats"][
+             "kernel_launches"],
+         ingest_service=rep["ingest"]["service"],
+         values_match_live_objects=True,
+         seconds=time.perf_counter() - t_phase)
+
+
 def run_sharded_deploy():
     """2^22 rows hash-routed into 4 slots of one stacked buffer: the
     per-slot scans plus the merge against ``flagged_mips_topk`` over the
@@ -1728,7 +2278,22 @@ def main() -> int:
         rag_q, questions)
     sh_launches, sh_q_launches = run_sharded_path(corpus, rag, rag_q,
                                                   questions)
-    del rag, rag_q
+    del rag_q
+    base_path = PathLaunches()
+    b1_scan = run_baselines(corpus, base_path)
+    base_launches = dict(base_path.counts)
+    for name in ("lsh_hash", "mips_topk"):
+        check(base_launches[name] > 0,
+              f"{name} never launched on the baselines path")
+    qc_launches = run_query_cache(corpus, rag, questions, PathLaunches())
+    check(qc_launches["mips_topk"] > 0,
+          "mips_topk never launched on the query cache path")
+    pipe, ingest_launches, per_embed_tick = run_ingest(rag, questions,
+                                                       PathLaunches())
+    del rag
+    run_index_report(pipe)
+    del pipe
+    torch.cuda.empty_cache()
     sh_deploy = run_sharded_deploy()
     run_reference_check(index_shards=4)
     run_reference_check(quantized_scan=True, index_shards=4)
@@ -1786,6 +2351,10 @@ def main() -> int:
               sharded_path={"launches": sh_launches["lsh_hash"],
                             "quantized_launches":
                                 sh_q_launches["lsh_hash"]},
+              baselines={"launches": base_launches["lsh_hash"]},
+              query_cache={"launches": qc_launches["lsh_hash"]},
+              ingest={"launches": ingest_launches["lsh_hash"],
+                      "per_embed_tick": per_embed_tick},
               k_128={k: lsh_wide[k] for k in keys + lsh_keys},
               growth_round={k: lsh_growth[k] for k in keys + lsh_keys},
               quantized_path={
@@ -1805,6 +2374,12 @@ def main() -> int:
               sharded_path={"launches": sh_launches["mips_topk"],
                             "merge_launches":
                                 sh_launches["merge_sharded_topk"]},
+              # one b = 1 launch a question; the scan at VanillaRAG's
+              # shape (its 25015 chunk rows, d = 256)
+              baselines={"launches": base_launches["mips_topk"],
+                         "b1_vanilla_shape": b1_scan},
+              query_cache={"launches": qc_launches["mips_topk"]},
+              ingest={"launches": ingest_launches["mips_topk"]},
               sharded_4_slots_at_2_22={
                   key: sh_deploy[key] for key in (
                       "sharded_ms", "flat_ms", "sharded_device_ms",

@@ -4,8 +4,8 @@
 because snapshots carry the config as a plain dict (``EraGraph.
 state_dict()["cfg"]``) and ``EraRAG.from_state`` rebuilds it with
 ``EraRAGConfig(**cfg)``.  Fields whose subsystem is not ported yet
-(sharding, lifecycle, query cache, ingest) are accepted and validated
-identically; the components that would read them raise
+(the lifecycle policy's ``reshard_*`` thresholds) are accepted and
+validated identically; the components that would read them raise
 ``NotImplementedError`` when a non-default value asks for them.
 
 ``ShapeSpec``, ``ArchConfig``, ``MoEConfig`` and ``LMConfig`` carry
@@ -42,8 +42,8 @@ class EraRAGConfig:
     seed: int = 0                    # hyperplane PRNG seed (persisted)
     retrieval_bias_p: float = 0.5    # adaptive search p in [0, 1]
     summary_max_tokens: int = 96
-    # vector-index sharding: 1 = single-buffer store (the only layout
-    # served here), >1 = hash-routed shards, 0 = one per device
+    # vector-index sharding: 1 = single-buffer store, >1 = hash-routed
+    # shards, 0 = one per device
     index_shards: int = 1
     collective_query: bool = True
     # index lifecycle (live resharding triggers; 0.0 disables)

@@ -22,8 +22,9 @@ of the store's device type), each with the exact scan or, under
 explicit ``EraRAG.reshard``.  The sharded store's collective query
 (``collective_query``) needs several devices and a process group, so
 the per-shard loop serves every batch, as in the JAX package without a
-mesh.  Live resharding by a lifecycle policy (the ``reshard_*``
-thresholds) and the semantic query cache raise
+mesh.  ``query_cache=True`` puts the epoch-invalidated
+``SemanticQueryCache`` in front of retrieval.  Live resharding by a
+lifecycle policy (the ``reshard_*`` thresholds) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 
 from repro_torch.common.config import EraRAGConfig, not_ported
 from repro_torch.core.graph import EraGraph, UpdateReport
+from repro_torch.core.query_cache import SemanticQueryCache
 from repro_torch.core.retrieve import BridgeFn, Retrieval, \
     adaptive_search_batch, collapsed_search_batch, \
     multihop_search_batch
@@ -49,13 +51,10 @@ from repro_torch.obs import Observability
 
 def _check_served(cfg: EraRAGConfig) -> None:
     """Raise for the config options whose subsystem is not ported."""
-    if cfg.query_cache:
-        raise not_ported("the semantic query cache (query_cache=True)",
-                          "serving caches")
     if cfg.reshard_skew_threshold > 0 \
             or cfg.reshard_tombstone_threshold > 0:
         raise not_ported("live resharding (reshard_* thresholds)",
-                          "lifecycle and checkpoint")
+                         "6. Lifecycle and checkpoint")
 
 
 def _quant_kw(cfg: EraRAGConfig) -> dict:
@@ -95,7 +94,16 @@ class EraRAG:
         self.reports: List[UpdateReport] = []
         # batched-retrieval-round counter: every batched store sweep
         # (however many questions it serves) counts ONE round
+        # (cache-served queries never consume a round)
         self.stats = {"retrieval_rounds": 0}
+        # semantic query cache in front of retrieval: exact +
+        # cosine-threshold hits, invalidated by the store cache_token
+        # (epoch + graph version), so cached Retrievals are never stale
+        self.query_cache = None
+        if cfg.query_cache:
+            self.query_cache = SemanticQueryCache(
+                capacity=cfg.query_cache_size,
+                threshold=cfg.query_cache_threshold)
 
     def reshard(self, n_shards: int) -> AnyStore:
         """Change the index shard count NOW (a synchronous epoch-swapped
@@ -115,6 +123,12 @@ class EraRAG:
         self.store.tracer = self.obs.tracer  # store may be a NEW object
         self.cfg = dataclasses.replace(self.cfg,
                                        index_shards=int(n_shards))
+        if self.query_cache is not None:
+            # a flat<->sharded reshard may swap in a NEW store object
+            # whose epoch counter restarts, so the token could collide
+            # with the old store's: drop the generation explicitly (an
+            # in-place sharded migration is covered by the epoch bump)
+            self.query_cache.clear()
         return self.store
 
     # ------------------------------------------------------------------
@@ -153,7 +167,9 @@ class EraRAG:
         ``mips_topk`` call for the whole query block.  ``query`` is the
         B=1 special case.  ``mode='multihop'`` runs two-round retrieval
         and returns ``HopRetrieval`` rows with composed contexts;
-        ``bridge_fn`` is only consulted in multihop mode."""
+        ``bridge_fn`` is only consulted in multihop mode.  With the
+        query cache on, only the block's misses go to the store, in one
+        sweep (multihop bypasses the cache)."""
         k = k or self.cfg.top_k
         texts = list(texts)
         if not texts:
@@ -172,8 +188,28 @@ class EraRAG:
                 return rets
             with tr.span("embed", n=len(texts)):
                 q = np.asarray(self.embedder.encode(texts))
-            self.stats["retrieval_rounds"] += 1
-            return self._search(q, k, mode)
+            if self.query_cache is None:
+                self.stats["retrieval_rounds"] += 1
+                return self._search(q, k, mode)
+            # semantic cache front: per-query exact/cosine lookup
+            # under the current store token; only the misses form a
+            # (single) store sweep, and every fresh result is cached
+            # under the same token
+            token = self.store.cache_token
+            key = (k, mode, self.cfg.token_budget,
+                   self.cfg.retrieval_bias_p)
+            with tr.span("cache_lookup", n=len(texts)) as sp:
+                out = self.query_cache.lookup_batch(token, key, q)
+                miss = [i for i, r in enumerate(out) if r is None]
+                if sp is not None:
+                    sp.attrs["misses"] = len(miss)
+            if miss:
+                self.stats["retrieval_rounds"] += 1
+                fresh = self._search(q[np.asarray(miss)], k, mode)
+                for i, r in zip(miss, fresh):
+                    self.query_cache.put(token, key, q[i], r)
+                    out[i] = r
+            return out
 
     def _search(self, q: np.ndarray, k: int, mode: str
                 ) -> List[Retrieval]:

@@ -138,6 +138,13 @@ class EraGraph:
         self.summary_cache: Optional[SummaryCache] = \
             SummaryCache(cfg.summary_cache_size) \
             if getattr(cfg, "summary_cache_size", 0) > 0 else None
+        # summarizer launch accounting for index_report()["launches"]:
+        # one launch per summarize_batch call issued from
+        # _materialize_summaries, segments counted per cache miss (the
+        # JAX package's serial loop under batch_summaries=False counts
+        # a launch a segment; that loop comes with the LM summarizer)
+        self.stats = {"summarize_launches": 0,
+                      "segments_summarized": 0}
         self.nodes: Dict[str, Node] = {}
         # layer_order[l]: insertion-ordered node-id set for layer l
         self.layer_order: List[Dict[str, None]] = []
@@ -342,6 +349,8 @@ class EraGraph:
             if miss:
                 outs = self.summarizer.summarize_batch(
                     [texts[i] for i in miss])
+                self.stats["summarize_launches"] += 1
+                self.stats["segments_summarized"] += len(miss)
                 for i, res in zip(miss, outs):
                     results[i] = res
                     if cache is not None:

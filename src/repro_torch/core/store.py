@@ -875,7 +875,12 @@ class _BaseStore:
     def attach_lifecycle(self, policy) -> None:
         if policy is not None:
             raise not_ported("live resharding (a lifecycle policy)",
-                              "lifecycle and checkpoint")
+                             "6. Lifecycle and checkpoint")
+
+    def routing_cache_info(self) -> Dict[str, int]:
+        """This store's private routing-LRU counters (never another
+        store's traffic: the cache is per instance)."""
+        return self._router.info()
 
     @property
     def migration(self):

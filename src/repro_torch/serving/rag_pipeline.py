@@ -9,8 +9,10 @@ end-to-end — one retrieval scan per round for the whole question block
 two-round multihop machinery.  ``answer`` is the sequential
 per-question oracle ``answer_batch`` must match answer for answer.
 
-Served here: the reader path (``engine=None``).  An LM reader, an
-attached ingest service and ``index_report`` raise
+Served here: the reader path (``engine=None``), an attached streaming
+``IngestService`` (``ingest=`` or ``attach_ingest``) and
+``index_report``, the serving-side view of the index over the obs
+registry's live collectors.  An LM reader (``engine=``) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,10 +21,13 @@ import re
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
+from repro_torch.common.config import not_ported
 from repro_torch.core.erarag import EraRAG
 from repro_torch.core.retrieve import Retrieval, default_bridge_fn, \
     is_hop_question
-from repro_torch.common.config import not_ported
+from repro_torch.lifecycle.report import ShardLoadReport
+from repro_torch.obs.schema import INDEX_REPORT_SCHEMA
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclass
@@ -86,15 +91,137 @@ class RAGPipeline:
                  ingest=None):
         if engine is not None:
             raise not_ported("an LM reader (engine=...)",
-                              "LM serving")
-        if ingest is not None:
-            raise not_ported("an attached ingest service", "ingest")
+                             "3. LM serving")
         self.rag = rag
         self.reader = reader or ExtractiveReader()
+        self.ingest = ingest  # optional repro_torch.ingest.IngestService
+        self._wire_obs()
+
+    def _wire_obs(self) -> None:
+        """Hand the pipeline's subsystems to the EraRAG observability
+        layer: the (possibly null) tracer flows onto the ingest service,
+        and live *collectors* land on the metrics registry so
+        ``index_report()`` is a view over it.  Collectors close over
+        ``self`` — never over a store object — so reshard/restore store
+        swaps need no re-registration."""
+        obs = self.rag.obs
+        if self.ingest is not None:
+            self.ingest.tracer = obs.tracer
+        reg = obs.registry
+        reg.register_collector("store", self._collect_store)
+        reg.register_collector("retrieval", self._collect_retrieval)
+        reg.register_collector("query_cache", self._collect_query_cache)
+        reg.register_collector("ingest", self._collect_ingest)
+        reg.register_collector("launches", self._collect_launches)
+        reg.register_collector("obs", self._collect_obs)
+        reg.declare_many(INDEX_REPORT_SCHEMA)
+
+    def attach_ingest(self, service) -> None:
+        """Attach a streaming ``IngestService`` so its queue/commit
+        counters surface in ``index_report()['ingest']``.  The serving
+        loop interleaves ``service.tick()`` with ``answer_batch`` calls
+        — the service never runs threads of its own."""
+        self.ingest = service
+        self.ingest.tracer = self.rag.obs.tracer
+
+    # -- registry collectors (live views, read at collection time) -----
+    def _collect_store(self) -> dict:
+        """Index health: size + refresh counters, the lifecycle
+        ``ShardLoadReport`` (per-shard live-row / tombstone / query-hit
+        skew, routing-cache counters, epoch), plus the per-shard
+        breakdown when the store is sharded."""
+        store = self.rag.store
+        out = {"size": store.size, "stats": dict(vars(store.stats)),
+               "epoch": store.epoch,
+               "load": ShardLoadReport.from_store(store).to_dict()}
+        # two-stage quantized retrieval: whether searches serve through
+        # the coarse sign-bit scan, and at what candidate multiplier
+        out["quantized_scan"] = bool(
+            getattr(store, "quantized", False)
+            and store._group.quant is not None)
+        if out["quantized_scan"]:
+            out["coarse_mult"] = store.coarse_mult
+            out["scan_bits"] = store.scan_bits
+        if hasattr(store, "shard_report"):
+            out["shards"] = store.shard_report()
+            # dispatch mode + rotating-compaction state
+            out["collective_query"] = store.collective_active
+            out["pending_compaction"] = store.pending_compaction
+        return out
+
+    def _collect_retrieval(self) -> dict:
+        return {"rounds": self.rag.stats["retrieval_rounds"]}
+
+    def _collect_query_cache(self) -> dict:
+        """Semantic query-cache movement counters; empty when the cache
+        is disabled."""
+        qc = self.rag.query_cache
+        return qc.stats.to_dict() if qc is not None else {}
+
+    def _collect_ingest(self) -> dict:
+        """Write-path health: summary-cache movement and, when a
+        streaming IngestService is attached, its queue depth /
+        burst-commit counters."""
+        out: dict = {}
+        if self.rag.graph.summary_cache is not None:
+            out["summary_cache"] = \
+                self.rag.graph.summary_cache.stats.to_dict()
+            out["summary_cache_entries"] = \
+                len(self.rag.graph.summary_cache)
+        if self.ingest is not None:
+            out["service"] = self.ingest.report()
+        return out
+
+    def _collect_launches(self) -> dict:
+        """Per-subsystem launch accounting: embedder encode calls,
+        summarizer materializations, retrieval sweep rounds, store
+        maintenance turns and the store's scans."""
+        store = self.rag.store
+        launches = {
+            "retrieval_rounds": self.rag.stats["retrieval_rounds"],
+            "store": {"refreshes": store.stats.refreshes,
+                      "compactions": store.stats.compactions,
+                      "reshard_steps": store.stats.reshard_steps,
+                      "quantized_scans": store.stats.quantized_scans,
+                      "kernel_launches": store.stats.kernel_launches}}
+        emb_stats = getattr(self.rag.graph.embedder, "stats", None)
+        if emb_stats is not None:
+            launches["embedder"] = dict(emb_stats)
+        launches["summarizer"] = dict(self.rag.graph.stats)
+        return launches
+
+    def _collect_obs(self) -> dict:
+        """Tracer accounting — only surfaced when tracing is enabled,
+        so the default counters-only report is unchanged."""
+        tr = self.rag.obs.tracer
+        if tr is NULL_TRACER:
+            return {}
+        return {"spans": tr.total_spans, "spans_dropped": tr.dropped}
 
     def index_report(self) -> dict:
-        raise not_ported("RAGPipeline.index_report",
-                          "lifecycle and checkpoint")
+        """Serving-side index health as a view over the obs registry:
+        every section is one registered collector (``store``,
+        ``retrieval``, ``query_cache``, ``ingest``, ``launches``,
+        ``obs``), read live at call time.  The reference's
+        ``prefix_cache`` section reports the LM engine's KV reuse; the
+        port has no engine yet (``engine=`` raises), so it has no such
+        collector.  The same
+        collectors back ``registry.snapshot()`` and
+        ``registry.to_prometheus()``, so the report, the flat metric
+        view and the text exposition cannot drift apart.  Every numeric
+        key is declared in ``obs.schema.INDEX_REPORT_SCHEMA``."""
+        reg = self.rag.obs.registry
+        report = dict(reg.collect("store"))
+        report["retrieval_rounds"] = reg.collect("retrieval")["rounds"]
+        for section in ("query_cache", "ingest"):
+            got = reg.collect(section)
+            if got:
+                report[section] = got
+        report["launches"] = reg.collect("launches")
+        obs = reg.collect("obs")
+        if obs:
+            report["obs"] = obs
+        return report
 
     def _multihop(self, questions: List[str], batched: bool
                   ) -> List[RAGAnswer]:

@@ -12,6 +12,8 @@ conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1055,3 +1057,149 @@ def test_lm_loss_and_grads_on_card_match_cpu(cuda):
                   for n in gc["layers"][0][sub]]
     for a, b in pairs:
         assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the retrieval front without an LM: baselines, query cache, ingest
+# ---------------------------------------------------------------------------
+
+FRONT_CFG = dict(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,
+                 max_layers=3, chunk_tokens=32, top_k=8, token_budget=1024)
+
+
+@pytest.mark.parametrize("name", ["VanillaRAG", "RaptorLike",
+                                  "GraphRAGLike"])
+def test_dense_baseline_on_card_matches_cpu(cuda, name):
+    """A build plus three rounds on the card and on the CPU: equal
+    update reports, hit ids, contexts; scores within SCORE_TOL; one
+    ``mips_topk`` launch a question (b = 1)."""
+    from repro_torch.core import baselines
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 3)
+    cfg = EraRAGConfig(**FRONT_CFG)
+    gpu = getattr(baselines, name)(cfg, HashingEmbedder(dim=128),
+                                   device=cuda)
+    cpu = getattr(baselines, name)(cfg, HashingEmbedder(dim=128),
+                                   device="cpu")
+    for docs in [init] + rounds:
+        a, b = gpu.insert_docs(docs), cpu.insert_docs(docs)
+        assert (a.tokens_in, a.tokens_out, a.n_new_chunks,
+                a.n_resummarized) == (b.tokens_in, b.tokens_out,
+                                      b.n_new_chunks, b.n_resummarized)
+    assert gpu._embs.device.type == "cuda"
+    assert torch.equal(gpu._embs.cpu(), cpu._embs)
+    questions = [qa.question for qa in corpus.qa[:40]]
+    mips_ops.reset_launch_count()
+    for q in questions:
+        a, b = gpu.query(q), cpu.query(q)
+        assert [h.node_id for h in a.hits] == [h.node_id for h in b.hits]
+        assert (a.context, a.n_tokens) == (b.context, b.n_tokens)
+        np.testing.assert_allclose([h.score for h in a.hits],
+                                   [h.score for h in b.hits],
+                                   rtol=0, atol=SCORE_TOL)
+    assert mips_ops.launch_count() == len(questions)
+
+
+def test_query_cache_over_the_quantized_store_on_card(cuda):
+    """The cache in front of the two-stage scan: a cold batch equals a
+    cache-off card store bit for bit, a warm batch launches nothing,
+    a half-new batch sweeps only its misses, an insert invalidates."""
+    cfg = EraRAGConfig(**FRONT_CFG, quantized_scan=True)
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 2)
+    cached = EraRAG(dataclasses.replace(cfg, query_cache=True),
+                    HashingEmbedder(dim=128), device=cuda)
+    plain = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)
+    for rag in (cached, plain):
+        for docs in [init] + rounds[:1]:
+            rag.insert_docs(docs)
+    qs = [qa.question for qa in corpus.qa[:24]]
+
+    def bits(rets):
+        return [([(h.node_id, h.seq, np.float32(h.score).view(np.uint32))
+                  for h in r.hits], r.context) for r in rets]
+
+    def launches():
+        return (lsh_ops.launch_count(), ham_ops.launch_count(),
+                mips_ops.rescore_launch_count(), mips_ops.launch_count())
+
+    for mode in ("collapsed", "detailed"):
+        assert bits(cached.query_batch(qs, mode=mode)) == \
+            bits(plain.query_batch(qs, mode=mode))
+        before = launches()
+        assert bits(cached.query_batch(qs, mode=mode)) == \
+            bits(plain.query_batch(qs, mode=mode))
+        # the plain store's sweep launched; the cached one nothing
+        after = launches()
+        plain_only = [a - b for a, b in zip(after, before)]
+        assert plain_only[1] > 0 and plain_only[2] > 0
+    rounds_before = cached.stats["retrieval_rounds"]
+    hams = ham_ops.launch_count()
+    half = qs[:12] + [q + " again" for q in qs[12:]]
+    assert bits(cached.query_batch(half)) == bits(plain.query_batch(half))
+    assert cached.stats["retrieval_rounds"] == rounds_before + 1
+    # one sweep each side: the cached side's b = 12, the plain's b = 24
+    assert ham_ops.launch_count() - hams == 2
+    for rag in (cached, plain):
+        rag.insert_docs(rounds[1])
+    assert bits(cached.query_batch(qs)) == bits(plain.query_batch(qs))
+    assert cached.query_cache.stats.invalidations == 1
+
+
+@pytest.mark.parametrize("k", [12, 64])
+def test_ingest_sub_batch_codes_are_the_one_shot_codes(cuda, k):
+    """``lsh_hash`` is row-deterministic on every grid: hashing a burst
+    in the ingest service's sub-batches of 1..64 rows gives each row
+    the codes the one-shot hash gives it, bit for bit."""
+    from repro_torch.core.lsh import HyperplaneLSH
+    rng = np.random.default_rng(k)
+    rows = rng.standard_normal((517, 256)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    lsh = HyperplaneLSH(256, k, seed=0, device=cuda)
+    one_shot = lsh.hash_packed(rows)
+    for batch in (1, 5, 33, 64):
+        before = lsh_ops.launch_count()
+        parts = [lsh.hash_packed(rows[i:i + batch])
+                 for i in range(0, len(rows), batch)]
+        assert lsh_ops.launch_count() - before == len(parts)
+        np.testing.assert_array_equal(np.concatenate(parts), one_shot)
+
+
+def test_ingest_service_on_card_is_the_sync_insert(cuda):
+    """A burst plus a removal through ``IngestService`` on the card:
+    node ids, store rows (bytes) and hits equal a synchronous twin's;
+    one ``lsh_hash`` launch an embed tick."""
+    from repro_torch.ingest import IngestService
+    cfg = EraRAGConfig(**FRONT_CFG)
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 2)
+    live = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)
+    twin = EraRAG(cfg, HashingEmbedder(dim=128), device=cuda)
+    for rag in (live, twin):
+        rag.insert_docs(init)
+        rag.store.refresh()
+    svc = IngestService(live, docs_per_tick=4, embed_batch=16)
+    svc.submit_many(rounds[0])
+    svc.remove([rounds[0][0][0]])
+    svc.submit_many(rounds[1])
+    qs = [qa.question for qa in corpus.qa[:16]]
+    while not svc.idle:
+        before = lsh_ops.launch_count()
+        stage = svc.tick()
+        if stage == "embed":
+            assert lsh_ops.launch_count() - before <= 1
+        live.query_batch(qs)
+    # the twin replays each committed op as the service lands it: one
+    # graph update, then one store refresh (the store's row order
+    # follows its refresh history)
+    for kind, payload in svc.committed_ops:
+        (twin.insert_docs if kind == "insert" else twin.remove_docs)(
+            payload)
+        twin.store.refresh()
+    assert list(live.graph.nodes) == list(twin.graph.nodes)
+    a, b = live.store.state_dict()["shard"], twin.store.state_dict()["shard"]
+    assert np.asarray(a["buf"]).tobytes() == np.asarray(b["buf"]).tobytes()
+    assert a["row_ids"] == b["row_ids"]
+    for x, y in zip(live.query_batch(qs), twin.query_batch(qs)):
+        assert [(h.node_id, h.score) for h in x.hits] == \
+            [(h.node_id, h.score) for h in y.hits]
