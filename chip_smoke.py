@@ -132,6 +132,37 @@ package.  Phases, each printing one JSON line:
 6f. ``index_report`` the ingest phase's ``RAGPipeline.index_report``:
                  its sections, key counts and ``to_prometheus()`` length;
                  its numbers equal to the live objects'.
+6g. ``serving_reference`` the tiny ``make_test_engine`` recipe (fp32,
+                 weights drawn once on the CPU) on the card and on the
+                 CPU: 6 prompts in two buckets, tokens under the margin
+                 rule, stats equal, every step's logits within 1e-4; the
+                 same with the prefix cache, hits against the cold path.
+6h. ``serving_engine`` llama3-8b at all 32 layers in bf16 (random
+                 weights, seed 0) behind an ``Engine`` of 8 slots x 4096
+                 positions: 8 prompts of 120-3000 tokens (6 buckets) as
+                 one batch and one at a time, and 8 prompts over 2
+                 declared prefixes against an engine without the cache,
+                 each under the margin rule with the largest logit
+                 difference printed; ``decode_step`` against ``prefill``;
+                 prefill ms and tokens/s by bucket, the decode step's
+                 median ms at 8 live slots against its byte bound, its
+                 kernels, device ms by kind and host share from the
+                 profiler; no ``flash_attention`` launch.
+6i. ``serving_rag`` ``RAGPipeline(rag, engine=...)`` over the main
+                 path's index: 16 questions twice (the second pass all
+                 prefix hits, under the margin rule), 4 through
+                 ``answer`` against their batch rows, 8 multihop
+                 questions in exactly 2 ``generate_batch`` calls; the
+                 report's ``prefix_cache`` and ``launches.engine``.
+6j. ``serving_summarizer`` ``EraRAG`` with an ``LMSummarizer`` on the
+                 same weights (32 documents: 24 built, 8 grown), batched
+                 and serial summaries, no prefix cache: summaries under
+                 the margin rule, node ids and update tokens equal, the
+                 serial run one ``generate_batch`` a segment, the
+                 batched one at most half as many.  The margin rule: two
+                 runs of the same prompts give equal tokens, or where
+                 they part the smaller top-1 over top-2 margin lies
+                 within the largest logit difference at that step.
     ``sharded_2_22`` 2^22 rows hash-routed into 4 slots of one stacked
                  buffer (capacity the largest slot): the per-slot
                  ``mips_topk`` scans plus the merge against
@@ -167,7 +198,8 @@ package.  Phases, each printing one JSON line:
                  kernels only.
 10. ``kernels``  one line listing every kernel with its numbers (the
                  ``lsh_hash`` and ``mips_topk`` entries with the
-                 launches of phases 6c-6e beside the main path's).
+                 launches of phases 6c-6e and 6g-6j beside the main
+                 path's).
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -180,6 +212,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -562,8 +595,12 @@ def mips_case(q, db, k, bias, label):
                          reps=5)
     flop = 2.0 * b * n * d
     bound_ms, bound_by = bound(4.0 * (n * d + b * d) + 8.0 * b * k, flop)
-    # device-only: the scan and the merge (no host work of the wrapper)
-    kernels = kernel_ms(lambda: ops.mips_topk(q_aug, db, k))
+    # device-only: the scan and the merge (no host work of the wrapper),
+    # both recorded
+    kernels = kernel_ms(lambda: ops.mips_topk(q_aug, db, k),
+                        expect=("mips_scan_kernel", "mips_merge_kernel"))
+    check(set(kernels) == {"mips_scan_kernel", "mips_merge_kernel"},
+          f"mips_topk {label}: the profiler kept {sorted(kernels)}")
     kernel_device_ms = sum(kernels.values())
     tile, tile_rows, rows_per_range, n_ranges = ops.mips_scan_grid(
         b, n, torch.cuda.get_device_properties(0).multi_processor_count)
@@ -1074,12 +1111,72 @@ def _bits_key(hits, seqs=True):
              int(np.float32(h.score).view(np.uint32))) for h in hits]
 
 
+class KernelInputs:
+    """While active, the inputs that the store's exact scan
+    (``flagged_mips_topk``) and the LSH's hash (``lsh_hash``) hand
+    their kernels: each call counted by shape, and the first call of
+    each shape kept (its tensors copied), so that every shape a path
+    launched can afterwards be held against the plain version."""
+
+    def __init__(self):
+        from repro_torch.core import lsh, store
+        self._mods = (store, lsh)
+        self._orig = (store.flagged_mips_topk, lsh.lsh_hash)
+        self.mips, self.lsh = {}, {}     # shape -> [calls, inputs]
+
+        def scan(q, db, k, bias):
+            key = (q.shape[0], db.shape[0], k, tuple(bias))
+            if key not in self.mips:
+                self.mips[key] = [0, (q.clone(), db.clone(), k, bias)]
+            self.mips[key][0] += 1
+            return self._orig[0](q, db, k, bias)
+
+        def hash_(v, h):
+            key = (v.shape[0], h.shape[1])
+            if key not in self.lsh:
+                self.lsh[key] = [0, (v.clone(), h.clone())]
+            self.lsh[key][0] += 1
+            return self._orig[1](v, h)
+
+        self._seen = (scan, hash_)
+
+    def __enter__(self):
+        self._mods[0].flagged_mips_topk, self._mods[1].lsh_hash = self._seen
+
+    def __exit__(self, *exc):
+        self._mods[0].flagged_mips_topk, self._mods[1].lsh_hash = self._orig
+
+    def calls(self, name):
+        return sum(c for c, _ in getattr(self, name).values())
+
+    def cases(self, phase):
+        """``mips_case`` and ``lsh_case`` at every shape kept: ``{"mips_topk":
+        [...], "lsh_hash": [...]}``, each case with its calls."""
+        keys = ("shape", "max_abs_err", "kernel_ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+        out = {"mips_topk": [], "lsh_hash": []}
+        for calls, (q, db, k, bias) in self.mips.values():
+            c = mips_case(q, db, k, bias, f"{phase} b={q.shape[0]} "
+                                          f"bias={bias}")
+            out["mips_topk"].append(dict(
+                {key: c[key] for key in keys + ("scan_grid",)},
+                flag_bias=list(bias), calls=calls))
+        for calls, (v, h) in self.lsh.values():
+            c = lsh_case(v, h, f"{phase} n={v.shape[0]}")
+            out["lsh_hash"].append(dict(
+                {key: c[key] for key in keys + ("grid", "bits_flipped")},
+                calls=calls))
+        return out
+
+
 class PathLaunches:
     """The kernels' launch counters over the steps of a path: set to 0
     when it starts, and only the steps run through ``drive`` count (the
-    checks' own searches in between do not)."""
+    checks' own searches in between do not). With ``record``, ``inputs``
+    keeps the shapes and inputs of the scans and hashes those steps
+    launch (a ``KernelInputs``)."""
 
-    def __init__(self):
+    def __init__(self, record=False):
         from repro_torch.kernels.hamming_topk import ops as ham_ops
         from repro_torch.kernels.lsh_hash import ops as lsh_ops
         from repro_torch.kernels.mips_topk import ops as mips_ops
@@ -1091,10 +1188,15 @@ class PathLaunches:
         for ops in (lsh_ops, mips_ops, ham_ops):
             ops.reset_launch_count()
         self.counts = dict.fromkeys(self.read, 0)
+        self.inputs = KernelInputs() if record else None
 
     def drive(self, fn):
         before = {k: f() for k, f in self.read.items()}
-        out = fn()
+        if self.inputs is None:
+            out = fn()
+        else:
+            with self.inputs:
+                out = fn()
         for k, f in self.read.items():
             self.counts[k] += f() - before[k]
         return out
@@ -1806,6 +1908,563 @@ def run_index_report(pipe):
          seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# phases 6g-6j: LM serving
+# ---------------------------------------------------------------------------
+SERVING_REF_TOL = 1e-4      # card vs CPU logits, fp32 tiny engine
+# decode_step at position 300 against prefill of the 301 tokens, bf16
+# through 32 layers in other GEMM shapes: |difference| within this
+# share of the largest |logit|. On the H100 the sound decode read
+# 0.0625 (1.1 %) and a planted off-by-one cache_len 0.125 (2.2 %) of
+# 5.59; the limit lies between, and each run checks both sides
+DECODE_REL_TOL = 1.6e-2
+SERVE_MAX_BATCH = 8
+SERVE_MAX_SEQ = 4096
+SERVE_NEW_TOKENS = 32
+# token lengths (BOS and EOS included) of the serving_engine prompts:
+# buckets 128, 256 (two of the same length), 512, 1024, 2048 and 4096
+# (two, one over 2048)
+SERVE_PROMPT_LENGTHS = (120, 200, 200, 480, 900, 1800, 2600, 3000)
+
+
+class TokenLog:
+    """The logits each token of a run was chosen from, by (prompt,
+    occurrence): the engine's ``_pick`` wrapped to read them, and its
+    ``submit`` so request ids map back to prompts."""
+
+    def __init__(self, engine):
+        self.rows, self._key, self._seen = {}, {}, {}
+        submit, pick = engine.submit, engine._pick
+
+        def tracked(prompt, max_new_tokens=None, prefix=None):
+            rid = submit(prompt, max_new_tokens, prefix)
+            n = self._seen.get(prompt, 0)
+            self._seen[prompt] = n + 1
+            self._key[rid] = (prompt, n)
+            return rid
+
+        def observed(logits, rows, keys):
+            for row, (rid, step) in zip(rows, keys):
+                seen = self.rows.setdefault(self._key[rid], [])
+                assert step == len(seen)
+                seen.append(logits[row].detach().clone())
+            return pick(logits, rows, keys)
+
+        engine.submit, engine._pick = tracked, observed
+
+    def stop(self, engine):
+        del engine.submit, engine._pick
+
+
+def _top2_margin(logits):
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def margin_rule(a: TokenLog, b: TokenLog, what: str, keys=None) -> dict:
+    """Two runs of the same prompts: at every step before they part the
+    tokens are equal, and where they part the smaller top-1 over top-2
+    margin must lie within the largest logit difference at that step.
+    Returns the largest difference over the steps compared and each
+    part."""
+    keys = keys if keys is not None else [k for k in a.rows if k in b.rows]
+    check(keys, f"{what}: no prompt in both runs")
+    worst, parts, steps = 0.0, [], 0
+    for key in keys:
+        for step, (la, lb) in enumerate(zip(a.rows[key], b.rows[key])):
+            la, lb = la.float(), lb.to(la.device).float()
+            diff = float((la - lb).abs().max())
+            worst = max(worst, diff)
+            steps += 1
+            if int(la.argmax()) != int(lb.argmax()):
+                margin = min(_top2_margin(la), _top2_margin(lb))
+                parts.append({"prompt_tokens": len(key[0].split()),
+                              "step": step, "margin": margin,
+                              "logit_diff": diff})
+                check(margin <= diff,
+                      f"{what}: tokens part at step {step} with a margin "
+                      f"{margin} over the largest logit difference {diff}")
+                break
+    return {"max_logit_diff": worst, "steps_compared": steps,
+            "parts": parts, "tokens_equal": not parts}
+
+
+def _phase_start():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _phase_end(t0):
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def run_serving_reference():
+    """The tiny ``make_test_engine`` recipe on the card and on the CPU,
+    the weights drawn once on the CPU: tokens under the margin rule,
+    stats equal, per-step logits within SERVING_REF_TOL; and prefix
+    hits against the cold path on both devices."""
+    from repro_torch.serving.testing import make_test_engine
+
+    t0 = _phase_start()
+    prompts = ["alpha beta", "tell me about alpha beta",
+               "gamma delta question about the river",
+               "a considerably longer question that lands in a larger "
+               "padded bucket than the short prompts do, with more words",
+               "epsilon zeta words", "eta theta iota kappa lambda mu"]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = make_test_engine(max_batch=6, max_seq_len=64, device=dev)
+        log = TokenLog(eng)
+        out = eng.generate_batch(prompts)
+        runs[dev] = (eng, log, out)
+    buckets = {runs["cpu"][0]._bucket_len(len(runs["cpu"][0].tok.encode(
+        p, add_special=True))) for p in prompts}
+    check(len(buckets) >= 2, f"serving_reference: buckets {buckets}")
+    cold_cmp = margin_rule(runs["cpu"][1], runs["cuda"][1],
+                           "serving_reference card vs CPU")
+    check(cold_cmp["max_logit_diff"] <= SERVING_REF_TOL,
+          f"serving_reference: logits differ by "
+          f"{cold_cmp['max_logit_diff']}")
+    check(runs["cpu"][0].stats == runs["cuda"][0].stats,
+          f"serving_reference: stats {runs['cpu'][0].stats} vs "
+          f"{runs['cuda'][0].stats}")
+    ctx = "The capital of France is Paris and the river is Seine . "
+    prefix = f"Context:\n{ctx}\n\n"
+    pp = [prefix + f"Question: q{i} capital\nAnswer:" for i in range(5)]
+    hits = {}
+    for dev in ("cpu", "cuda"):
+        cold = make_test_engine(max_batch=2, device=dev)
+        warm = make_test_engine(max_batch=2, prefix_cache_entries=4,
+                                device=dev)
+        cl, wl = TokenLog(cold), TokenLog(warm)
+        cold.generate_batch(pp)
+        warm.generate_batch(pp, prefixes=[prefix] * len(pp))
+        check(warm.stats["prefix_hits"] == 3,
+              f"serving_reference {dev}: prefix hits {warm.stats}")
+        hits[dev] = (margin_rule(cl, wl, f"serving_reference {dev} hit "
+                                         f"vs cold"), wl)
+    warm_cmp = margin_rule(hits["cpu"][1], hits["cuda"][1],
+                           "serving_reference hits card vs CPU")
+    check(warm_cmp["max_logit_diff"] <= SERVING_REF_TOL,
+          f"serving_reference: hit logits differ by "
+          f"{warm_cmp['max_logit_diff']}")
+    emit("serving_reference", recipe="make_test_engine (2 layers, d 64, "
+         "4 q / 2 kv heads, d_ff 128, vocab 512, fp32)",
+         prompts=len(prompts), buckets=sorted(buckets),
+         card_vs_cpu=cold_cmp, stats=runs["cuda"][0].stats,
+         tolerance=SERVING_REF_TOL,
+         hit_vs_cold={d: h[0] for d, h in hits.items()},
+         hits_card_vs_cpu=warm_cmp, **_phase_end(t0))
+
+
+class LaunchTimer:
+    """Host-clock milliseconds of each engine launch of one kind (the
+    card synchronized around it), with what it served."""
+
+    def __init__(self, engine, name, info):
+        self.records = []
+        fn = getattr(engine, name)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.records.append(dict(info(engine, *args),
+                                     ms=(time.perf_counter() - t) * 1e3))
+            return out
+
+        setattr(engine, name, timed)
+
+
+def _decode_profile(model, cfg, eng, length):
+    """One ``decode_step`` of all 8 slots at ``length``: CUDA-event ms,
+    the kernels it launches and their device ms, from the profiler."""
+    from repro_torch.kernels.timing import kernel_ms, time_ms
+    from repro_torch.models import transformer as T
+
+    tok = torch.full((SERVE_MAX_BATCH, 1), 5, dtype=torch.int64,
+                     device="cuda")
+    rows = list(range(SERVE_MAX_BATCH))
+
+    def step():
+        with torch.inference_mode():
+            T.decode_step(model, tok, eng.caches, length, cfg,
+                          compute_dtype=torch.bfloat16, rows=rows)
+
+    event_ms = time_ms(step, reps=10, warmup=2)
+    launches = {}
+    by_kernel = kernel_ms(step, reps=2, pattern=r"^(.+)$",
+                          launches=launches)
+    device = sum(by_kernel.values())
+    # the launch counts also hold the host's runtime calls (no device
+    # time): only the kernels are counted
+    kinds = {}
+    for name, ms in by_kernel.items():
+        kind = _kernel_kind(name)
+        ms_n = kinds.setdefault(kind, [0.0, 0.0])
+        ms_n[0] += ms
+        ms_n[1] += launches.get(name, 0)
+    return {"length": length, "event_ms": event_ms, "device_ms": device,
+            "kernels_per_step": sum(n for _, n in kinds.values()),
+            "distinct_kernels": len(by_kernel),
+            "host_share": (event_ms - device) / event_ms,
+            "by_kind": {k: {"device_ms": v[0], "kernels": v[1]}
+                        for k, v in sorted(kinds.items())}}
+
+
+def _kernel_kind(name: str) -> str:
+    """A profiler kernel name's kind: a cuBLAS product (fp32 or not),
+    a copy (casts and gathers), an index write, a reduction, or another
+    elementwise kernel."""
+    if any(t in name for t in ("gemm", "nvjet", "xmma", "gemv", "cutlass")):
+        return "gemm_fp32" if ("f32f32" in name or "<float" in name or
+                               "sgemm" in name) else "gemm"
+    if "copy" in name:
+        return "copy"
+    if "index" in name or "scatter" in name:
+        return "index"
+    if "reduce" in name:
+        return "reduce"
+    return "elementwise"
+
+
+def run_serving_engine(corpus):
+    """llama3-8b at all 32 layers, bf16, random weights from a seeded
+    generator, behind an ``Engine`` of 8 slots x 4096 positions."""
+    from repro_torch.configs.llama3_8b import llama3_8b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig
+
+    t0 = _phase_start()
+    cfg = llama3_8b()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ecfg = EngineConfig(max_batch=SERVE_MAX_BATCH, max_seq_len=SERVE_MAX_SEQ,
+                        max_new_tokens=SERVE_NEW_TOKENS,
+                        compute_dtype=torch.bfloat16,
+                        prefix_cache_entries=64)
+    eng = Engine(cfg, model, ecfg)
+    check(eng.model is model, "serving_engine: the engine copied the model")
+    fa_before = (fa_ops.launch_count(), fa_ops.bwd_launch_count())
+    # corpus text as engine tokens; a prompt of n tokens (BOS and EOS
+    # included) is n - 2 of them joined by spaces
+    words = eng.tok.tokenize(" ".join(t for _, t in corpus.docs[:400]))
+    prompts = [" ".join(words[i * 4000:i * 4000 + n - 2])
+               for i, n in enumerate(SERVE_PROMPT_LENGTHS)]
+    lengths = [len(eng.tok.encode(p, add_special=True)) for p in prompts]
+    check(lengths == list(SERVE_PROMPT_LENGTHS),
+          f"serving_engine: prompt lengths {lengths}")
+    buckets = [eng._bucket_len(n) for n in lengths]
+
+    prefill_t = LaunchTimer(eng, "_prefill_bucket", lambda e, t, l, s: {
+        "bucket": int(t.shape[1]), "prompts": len(s),
+        "tokens": int(np.sum(l))})
+    decode_t = LaunchTimer(eng, "_decode_step", lambda e, t, n, rows: {
+        "live_slots": sum(s.active for s in e.slots), "length": int(n)})
+    batched_log = TokenLog(eng)
+    before = dict(eng.stats)
+    batched = eng.generate_batch(prompts)
+    stats = {k: eng.stats[k] - before[k] for k in before}
+    batched_log.stop(eng)
+    seq_log = TokenLog(eng)
+    sequential = [eng.generate(p) for p in prompts]
+    seq_log.stop(eng)
+    seq_cmp = margin_rule(batched_log, seq_log,
+                          "serving_engine batched vs sequential")
+    check(stats["prefill_launches"] < stats["prefill_prompts"],
+          f"serving_engine: prefill launches {stats}")
+    check(stats["decode_launches"] < stats["slot_steps"],
+          f"serving_engine: decode launches {stats}")
+    # every cold launch of the batched and sequential runs, by bucket
+    # (the batched run's first launch of a bucket includes cuBLAS's
+    # one-time choice of kernels)
+    per_bucket = {}
+    for r in prefill_t.records:
+        b = per_bucket.setdefault(r["bucket"], {"ms": [], "tokens": []})
+        b["ms"].append(r["ms"])
+        b["tokens"].append(r["tokens"])
+    for blen, b in per_bucket.items():
+        med = statistics.median(b["ms"])
+        b["median_ms"] = med
+        b["tokens_per_s"] = [t / ms * 1e3 for t, ms in
+                             zip(b["tokens"], b["ms"])]
+        b["padded_tokens_per_s"] = SERVE_MAX_BATCH * blen / med * 1e3
+    full = [r["ms"] for r in decode_t.records
+            if r["live_slots"] == SERVE_MAX_BATCH]
+
+    # prefix reuse: 2 prompts declare 2 contexts, then 8 prompts over
+    # them are hits; their tokens against an engine without the cache
+    ctxs = [" ".join(words[50000:51400]), " ".join(words[60000:60800])]
+    pre = [f"Context:\n{c}\n\n" for c in ctxs]
+    first = [pre[i] + "Question: what comes first?\nAnswer:"
+             for i in range(2)]
+    hit_prompts = [pre[i % 2] + f"Question: what is said of item {i}?"
+                   f"\nAnswer:" for i in range(8)]
+    hit_prefixes = [pre[i % 2] for i in range(8)]
+    eng.generate_batch(first, prefixes=pre)
+    hits_before = eng.stats["prefix_hits"]
+    hit_log = TokenLog(eng)
+    hit_out = eng.generate_batch(hit_prompts, prefixes=hit_prefixes)
+    hit_log.stop(eng)
+    check(eng.stats["prefix_hits"] - hits_before == 8,
+          f"serving_engine: prefix hits {eng.stats['prefix_hits']} - "
+          f"{hits_before}")
+    off = Engine(cfg, model, EngineConfig(
+        max_batch=SERVE_MAX_BATCH, max_seq_len=SERVE_MAX_SEQ,
+        max_new_tokens=SERVE_NEW_TOKENS, compute_dtype=torch.bfloat16))
+    cold_log = TokenLog(off)
+    cold_out = off.generate_batch(hit_prompts, prefixes=hit_prefixes)
+    check(off.stats["prefix_hits"] == 0, "serving_engine: the cache-off "
+                                         "engine hit")
+    hit_cmp = margin_rule(hit_log, cold_log, "serving_engine hit vs cold")
+    del off, cold_log
+
+    # decode_step at position n against prefill of the n + 1 tokens
+    ids = eng.tok.encode(prompts[3], add_special=True)[:301]
+    ids = torch.from_numpy(ids.astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        _, cache = T.prefill(model, ids[:, :300], cfg, max_len=301,
+                             compute_dtype=torch.bfloat16)
+        dec, _ = T.decode_step(model, ids[:, 300:], cache, 300, cfg,
+                               compute_dtype=torch.bfloat16)
+        # a planted off-by-one: the same token decoded at cache_len 299
+        # (its K/V over position 299's, rotated as 299, 300 positions
+        # read), the fault the tolerance must tell apart
+        off, _ = T.decode_step(model, ids[:, 300:], cache, 299, cfg,
+                               compute_dtype=torch.bfloat16)
+        ref, _ = T.prefill(model, ids, cfg, compute_dtype=torch.bfloat16)
+    del cache
+    dec_diff = float((dec.float() - ref.float()).abs().max())
+    off_diff = float((off.float() - ref.float()).abs().max())
+    dec_scale = float(ref.float().abs().max())
+    check(bool(torch.isfinite(dec.float()).all()) and
+          dec_diff <= DECODE_REL_TOL * dec_scale,
+          f"serving_engine: decode vs prefill differ by {dec_diff} "
+          f"(largest |logit| {dec_scale})")
+    check(off_diff > DECODE_REL_TOL * dec_scale,
+          f"serving_engine: an off-by-one cache_len moves the logits by "
+          f"{off_diff}, within the tolerance {DECODE_REL_TOL * dec_scale}")
+
+    profile = _decode_profile(model, cfg, eng, 3000)
+    kv_bytes = sum(c.numel() * c.element_size() for c in eng.caches.values())
+    weight_bytes = (cfg.param_count() - cfg.vocab_size * cfg.d_model) * 2
+    bound_ms = (weight_bytes + kv_bytes) / MEM_BYTES_PER_S * 1e3
+    live_kv = kv_bytes * 3001 / SERVE_MAX_SEQ
+    # each timed 8-live step against the bytes it reads: the weights and
+    # the first length + 1 positions of every slot's K/V
+    full_recs = [r for r in decode_t.records
+                 if r["live_slots"] == SERVE_MAX_BATCH]
+    live_shares = [(weight_bytes + kv_bytes * (r["length"] + 1) /
+                    SERVE_MAX_SEQ) / MEM_BYTES_PER_S * 1e3 / r["ms"]
+                   for r in full_recs]
+    check(fa_before == (fa_ops.launch_count(), fa_ops.bwd_launch_count()),
+          "serving_engine: flash_attention launched on the serving path")
+    median_decode = statistics.median(full) if full else None
+    emit("serving_engine", model="llama3-8b", n_layers=cfg.n_layers,
+         params=cfg.param_count(), compute_dtype="bfloat16",
+         init_s=init_s, engine={"max_batch": SERVE_MAX_BATCH,
+                                "max_seq_len": SERVE_MAX_SEQ,
+                                "max_new_tokens": SERVE_NEW_TOKENS,
+                                "prefix_cache_entries": 64},
+         prompt_tokens=lengths, buckets=buckets, batched_stats=stats,
+         batched_vs_sequential=seq_cmp,
+         answers_equal=batched == sequential,
+         prefix_hits=eng.stats["prefix_hits"], hit_vs_cold=hit_cmp,
+         hit_answers_equal=hit_out == cold_out,
+         decode_vs_prefill={"position": 300, "max_abs_diff": dec_diff,
+                            "off_by_one_max_abs_diff": off_diff,
+                            "max_abs_logit": dec_scale,
+                            "tolerance": DECODE_REL_TOL * dec_scale},
+         prefill_per_bucket=per_bucket,
+         decode_step_ms_8_live={"median": median_decode, "n": len(full)},
+         decode_step_bound_ms=bound_ms,
+         decode_step_bound_by="bytes (bf16 weights without the embedding "
+                              "table + K/V at max_seq_len)",
+         decode_step_bound_share=bound_ms / median_decode
+         if median_decode else None,
+         decode_step_bound_ms_at_live_length=(weight_bytes + live_kv) /
+         MEM_BYTES_PER_S * 1e3,
+         decode_step_bound_share_at_live_length={
+             "median": statistics.median(live_shares) if live_shares
+             else None,
+             "lengths": [min(r["length"] for r in full_recs),
+                         max(r["length"] for r in full_recs)]
+             if full_recs else None},
+         decode_profile=profile, kv_cache_bytes=kv_bytes,
+         flash_attention_launches=0, **_phase_end(t0))
+    del eng
+    return model, cfg
+
+
+def _path_kernel_cases(path, phase):
+    """Every scan and hash shape that ``path``'s steps launched, held
+    against the plain versions on the inputs they were given; the calls
+    seen by shape must account for every launch counted."""
+    rec = path.inputs
+    for name, seen in (("mips_topk", "mips"), ("lsh_hash", "lsh")):
+        check(rec.calls(seen) == path.counts[name],
+              f"{phase}: {rec.calls(seen)} {name} calls seen for "
+              f"{path.counts[name]} launches")
+    return rec.cases(phase)
+
+
+def run_serving_rag(rag, corpus, model, cfg):
+    """``RAGPipeline(rag, engine=...)`` over the main path's index: 16
+    questions twice (the second pass all prefix hits), 4 through
+    ``answer``, 8 multihop questions in two ``generate_batch`` calls."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.rag_pipeline import RAGPipeline
+
+    t0 = _phase_start()
+    path = PathLaunches(record=True)
+    eng = Engine(cfg, model, EngineConfig(
+        max_batch=SERVE_MAX_BATCH, max_seq_len=SERVE_MAX_SEQ,
+        max_new_tokens=16, compute_dtype=torch.bfloat16,
+        prefix_cache_entries=64))
+    pipe = RAGPipeline(rag, engine=eng)
+    questions = [qa.question for qa in corpus.qa
+                 if qa.kind == "detailed"][:16]
+    first_log = TokenLog(eng)
+    t = time.perf_counter()
+    first = path.drive(lambda: pipe.answer_batch(questions))
+    first_s = time.perf_counter() - t
+    first_log.stop(eng)
+    hits0 = eng.stats["prefix_hits"]
+    second_log = TokenLog(eng)
+    t = time.perf_counter()
+    second = path.drive(lambda: pipe.answer_batch(questions))
+    second_s = time.perf_counter() - t
+    second_log.stop(eng)
+    check(eng.stats["prefix_hits"] - hits0 == len(questions),
+          f"serving_rag: second pass hits "
+          f"{eng.stats['prefix_hits'] - hits0}")
+    check([a.context for a in first] == [a.context for a in second],
+          "serving_rag: contexts differ between passes")
+    pass_cmp = margin_rule(first_log, second_log,
+                           "serving_rag second pass vs first")
+    one_log = TokenLog(eng)
+    singles = [path.drive(lambda q=q: pipe.answer(q))
+               for q in questions[:4]]
+    one_log.stop(eng)
+    one_cmp = margin_rule(second_log, one_log,
+                          "serving_rag answer vs answer_batch",
+                          keys=list(one_log.rows))
+    # 8 multihop questions, those whose round-1 retrieval finds a bridge
+    # first (only they take a bridge-extraction launch)
+    hop = [qa.question for qa in corpus.qa if qa.kind == "multihop"]
+    rets = rag.query_batch(hop[:256], mode="multihop")
+    bridged = [q for q, r in zip(hop, rets) if r.hops == 2]
+    check(bridged, "serving_rag: no multihop question finds its bridge")
+    hop = (bridged + [q for q in hop if q not in bridged])[:8]
+    gb = eng.stats["generate_batches"]
+    t = time.perf_counter()
+    hop_answers = path.drive(
+        lambda: pipe.answer_batch(hop, mode="multihop"))
+    hop_s = time.perf_counter() - t
+    check(eng.stats["generate_batches"] - gb == 2,
+          f"serving_rag: multihop generate_batches "
+          f"{eng.stats['generate_batches'] - gb}")
+    check(all(a.answer.startswith("tok") for a in
+              first + second + singles + hop_answers),
+          "serving_rag: an empty answer")
+    check(path.counts["mips_topk"] > 0,
+          "serving_rag: mips_topk never launched")
+    rep = pipe.index_report()
+    check(rep["prefix_cache"]["hits"] == eng.stats["prefix_hits"] and
+          rep["launches"]["engine"]["generate_batches"] ==
+          eng.stats["generate_batches"], "serving_rag: index_report "
+                                         "differs from the engine")
+    scans = _path_kernel_cases(path, "serving_rag")
+    emit("serving_rag", questions=len(questions),
+         context_tokens=[a.n_context_tokens for a in first[:4]],
+         first_pass_s=first_s, second_pass_s=second_s,
+         answers_per_s={"first_pass": len(questions) / first_s,
+                        "second_pass": len(questions) / second_s,
+                        "multihop": len(hop) / hop_s},
+         second_pass_vs_first=pass_cmp,
+         answer_vs_answer_batch=one_cmp,
+         multihop={"questions": len(hop), "generate_batches": 2,
+                   "bridged": min(len(bridged), 8), "seconds": hop_s},
+         prefix_cache=rep["prefix_cache"],
+         launches_engine=rep["launches"]["engine"],
+         launches=dict(path.counts), kernel_cases=scans, **_phase_end(t0))
+    del eng, pipe
+    return dict(path.counts)
+
+
+def run_serving_summarizer(model, cfg):
+    """``EraRAG`` with an ``LMSummarizer`` on llama3-8b, batched and
+    serial summaries, no prefix cache: the same graph."""
+    from repro_torch.configs.erarag import ERARAG_DEFAULT
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.core.summarize import LMSummarizer
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+    from repro_torch.serving import Engine, EngineConfig
+
+    t0 = _phase_start()
+    path = PathLaunches(record=True)
+    docs = SyntheticCorpus.generate(n_docs=32, n_topics=8, seed=0).docs
+    runs = {}
+    for batched in (True, False):
+        eng = Engine(cfg, model, EngineConfig(
+            max_batch=SERVE_MAX_BATCH, max_seq_len=1024, max_new_tokens=16,
+            compute_dtype=torch.bfloat16, prefix_cache_entries=0))
+        log = TokenLog(eng)
+        rag = EraRAG(replace(ERARAG_DEFAULT, batch_summaries=batched),
+                     HashingEmbedder(dim=256),
+                     summarizer=LMSummarizer(eng, max_tokens=16),
+                     device="cuda")
+        t = time.perf_counter()
+        path.drive(lambda: rag.insert_docs(docs[:24]))
+        path.drive(lambda: rag.insert_docs(docs[24:]))
+        runs[batched] = {"rag": rag, "log": log, "engine": eng,
+                         "s": time.perf_counter() - t}
+    cmp = margin_rule(runs[True]["log"], runs[False]["log"],
+                      "serving_summarizer batched vs serial")
+    b, s = runs[True], runs[False]
+    same_ids = list(b["rag"].graph.nodes) == list(s["rag"].graph.nodes)
+    tokens = {k: [(r.tokens_in, r.tokens_out) for r in v["rag"].reports]
+              for k, v in runs.items()}
+    if cmp["tokens_equal"]:
+        check(same_ids and tokens[True] == tokens[False],
+              "serving_summarizer: equal summaries, different graphs")
+    segments = s["rag"].graph.stats["segments_summarized"]
+    check(s["engine"].stats["generate_batches"] == segments,
+          f"serving_summarizer: serial generate_batches "
+          f"{s['engine'].stats['generate_batches']} for {segments} "
+          f"segments")
+    check(b["engine"].stats["generate_batches"] <= segments // 2,
+          f"serving_summarizer: batched generate_batches "
+          f"{b['engine'].stats['generate_batches']} for {segments}")
+    check(path.counts["lsh_hash"] > 0,
+          "serving_summarizer: lsh_hash never launched")
+    scans = _path_kernel_cases(path, "serving_summarizer")
+    emit("serving_summarizer", corpus="SyntheticCorpus(n_docs=32, "
+         "n_topics=8, seed=0): 24 built, 8 grown",
+         reduced={"docs": [5000, 32]}, max_tokens=16,
+         segments=segments, node_ids_equal=same_ids,
+         update_tokens=tokens[True],
+         update_tokens_equal=tokens[True] == tokens[False],
+         batched_vs_serial=cmp,
+         generate_batches={"batched": b["engine"].stats["generate_batches"],
+                           "serial": s["engine"].stats["generate_batches"]},
+         engine_launches={"batched": b["engine"].launches,
+                          "serial": s["engine"].launches},
+         seconds_by_run={"batched": b["s"], "serial": s["s"]},
+         launches=dict(path.counts), kernel_cases=scans, **_phase_end(t0))
+    del runs
+    return dict(path.counts)
+
+
 def run_sharded_deploy():
     """2^22 rows hash-routed into 4 slots of one stacked buffer: the
     per-slot scans plus the merge against ``flagged_mips_topk`` over the
@@ -2290,9 +2949,16 @@ def main() -> int:
           "mips_topk never launched on the query cache path")
     pipe, ingest_launches, per_embed_tick = run_ingest(rag, questions,
                                                        PathLaunches())
-    del rag
     run_index_report(pipe)
     del pipe
+    torch.cuda.empty_cache()
+    run_serving_reference()
+    model, lm_cfg = run_serving_engine(corpus)
+    rag_launches = run_serving_rag(rag, corpus, model, lm_cfg)
+    sum_launches = run_serving_summarizer(model, lm_cfg)
+    serving_launches = {k: rag_launches[k] + sum_launches[k]
+                        for k in rag_launches}
+    del rag, model
     torch.cuda.empty_cache()
     sh_deploy = run_sharded_deploy()
     run_reference_check(index_shards=4)
@@ -2355,6 +3021,8 @@ def main() -> int:
               query_cache={"launches": qc_launches["lsh_hash"]},
               ingest={"launches": ingest_launches["lsh_hash"],
                       "per_embed_tick": per_embed_tick},
+              serving={"launches": serving_launches["lsh_hash"],
+                       "summarizer": sum_launches["lsh_hash"]},
               k_128={k: lsh_wide[k] for k in keys + lsh_keys},
               growth_round={k: lsh_growth[k] for k in keys + lsh_keys},
               quantized_path={
@@ -2380,6 +3048,8 @@ def main() -> int:
                          "b1_vanilla_shape": b1_scan},
               query_cache={"launches": qc_launches["mips_topk"]},
               ingest={"launches": ingest_launches["mips_topk"]},
+              serving={"launches": serving_launches["mips_topk"],
+                       "lm_reader": rag_launches["mips_topk"]},
               sharded_4_slots_at_2_22={
                   key: sh_deploy[key] for key in (
                       "sharded_ms", "flat_ms", "sharded_device_ms",

@@ -140,9 +140,8 @@ class EraGraph:
             if getattr(cfg, "summary_cache_size", 0) > 0 else None
         # summarizer launch accounting for index_report()["launches"]:
         # one launch per summarize_batch call issued from
-        # _materialize_summaries, segments counted per cache miss (the
-        # JAX package's serial loop under batch_summaries=False counts
-        # a launch a segment; that loop comes with the LM summarizer)
+        # _materialize_summaries (one a segment on the serial loop under
+        # batch_summaries=False), segments counted per cache miss
         self.stats = {"summarize_launches": 0,
                       "segments_summarized": 0}
         self.nodes: Dict[str, Node] = {}
@@ -310,11 +309,11 @@ class EraGraph:
         This is the single summarization choke point for a layer
         update: every segment needing a (re)summary is collected here
         and the cache misses are materialized in ONE
-        ``summarize_batch`` call.  Node-creation order is the job
-        order, which fixes ``nodes`` / ``_pending_added`` and therefore
-        the vector store's row order.  (``cfg.batch_summaries`` is
-        accepted for snapshot compatibility; the extractive
-        summarizer's batch is its serial loop, so it selects nothing.)
+        ``summarize_batch`` call (with ``cfg.batch_summaries``, the
+        default, and a summarizer that has one), else one ``summarize``
+        call a segment.  Node-creation order is the job order, which
+        fixes ``nodes`` / ``_pending_added`` and therefore the vector
+        store's row order.
 
         The content-keyed ``summary_cache`` short-circuits jobs whose
         (layer, member-id) digest was summarized before: summarizers
@@ -347,10 +346,15 @@ class EraGraph:
                 report.summary_tokens_saved += saved
                 results[i] = SummaryResult(hit, 0, 0)
             if miss:
-                outs = self.summarizer.summarize_batch(
-                    [texts[i] for i in miss])
-                self.stats["summarize_launches"] += 1
-                self.stats["segments_summarized"] += len(miss)
+                batch = [texts[i] for i in miss]
+                if self.cfg.batch_summaries and \
+                        hasattr(self.summarizer, "summarize_batch"):
+                    outs = self.summarizer.summarize_batch(batch)
+                    self.stats["summarize_launches"] += 1
+                else:
+                    outs = [self.summarizer.summarize(t) for t in batch]
+                    self.stats["summarize_launches"] += len(batch)
+                self.stats["segments_summarized"] += len(batch)
                 for i, res in zip(miss, outs):
                     results[i] = res
                     if cache is not None:

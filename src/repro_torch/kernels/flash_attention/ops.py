@@ -33,6 +33,19 @@ launches`` (one per backward call, which launches its kernels in order
 on the current stream); beside each, one counter per route,
 ``kernels.flash_attention_{fwd,bwd}.<route>.launches`` with the routes
 of ``ROUTES``.
+
+The attention of the serving path, over a KV cache, is four plain
+compositions on either device, as in the JAX package, where they are
+XLA and reach no Pallas kernel: ``chunked_attention`` and
+``causal_blocked_attention`` (prefill), ``extend_attention`` (a suffix
+over per-row cache prefixes) and ``dense_decode_attention`` (one
+token).  They follow the reference term for term: blocks of
+``block_k`` keys with the tail padded, masked scores set to -1e30, fp32
+softmax state, ``l == 0 -> 1``.  Where the reference multiplies
+operands in their own dtype with fp32 accumulation
+(``preferred_element_type=jnp.float32``), the operands are rounded to
+that dtype and widened to fp32 here (``_widened``): a product of two
+bf16 values is exact in fp32, and TF32 is off.
 """
 from __future__ import annotations
 
@@ -40,10 +53,12 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.common import check_launch, load_kernel, \
     stream_ptr
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention.ref import NEG
 from repro_torch.obs.metrics import global_registry
 
 HEAD_DIMS = (16, 32, 64, 128)     # d the CUDA kernels take
@@ -216,3 +231,159 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"flash_attention: no route for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# attention over a KV cache: the serving path's plain compositions
+# ---------------------------------------------------------------------------
+def _widened(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and widened to fp32: an operand of a
+    product the reference runs in ``dtype`` with fp32 accumulation."""
+    return t.to(dtype).to(torch.float32)
+
+
+def _online_softmax(q, k, v, scale, block_k, mask_fn):
+    """The scan over key blocks of ``chunked_attention`` and
+    ``extend_attention``: ``mask_fn(kpos)`` gives the visible keys of a
+    block, a bool (b or 1, lq, bk) for key positions ``kpos`` (bk,)."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    group = hq // hkv
+    bk = min(block_k, lk)
+    pad = (-lk) % bk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    cdt = q.dtype
+    qg = _widened(q * torch.tensor(scale, dtype=cdt, device=q.device), cdt
+                  ).reshape(b, hkv, group * lq, d)
+    m = torch.full((b, hkv, group, lq), NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, group, lq, d), dtype=torch.float32,
+                      device=q.device)
+    for i in range((lk + pad) // bk):
+        kt = _widened(k[:, :, i * bk:(i + 1) * bk], cdt)
+        vt = _widened(v[:, :, i * bk:(i + 1) * bk], cdt)
+        s = (qg @ kt.transpose(-1, -2)).view(b, hkv, group, lq, bk)
+        kpos = i * bk + torch.arange(bk, device=q.device)
+        s.masked_fill_(~mask_fn(kpos)[:, None, None], NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = _widened(p, cdt).view(b, hkv, group * lq, bk) @ vt
+        acc = acc * alpha[..., None] + pv.view(b, hkv, group, lq, d)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).reshape(b, hq, lq, d).to(q.dtype)
+
+
+def _check_gqa(q: torch.Tensor, k: torch.Tensor) -> None:
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv "
+                         f"heads {k.shape[1]}")
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = False,
+                      scale: Optional[float] = None, block_k: int = 1024,
+                      kv_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Online-softmax attention over blocks of ``block_k`` keys.
+
+    q: (b, hq, lq, d); k, v: (b, hkv, lk, d).  GQA by head groups (no
+    repeat).  Causal puts the queries at the end of the key window
+    (offset lk - lq); ``kv_len`` (b,) masks a partly filled cache."""
+    _check_gqa(q, k)
+    lq, d = q.shape[2], q.shape[3]
+    lk = k.shape[2]
+    qpos = torch.arange(lq, device=q.device) + (lk - lq)
+
+    def mask_fn(kpos):
+        mask = (kpos < lk)[None, None, :]
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qpos[None, :, None])
+        if kv_len is not None:
+            mask = mask & (kpos[None, None, :] <
+                           kv_len.to(q.device)[:, None, None])
+        return mask
+
+    return _online_softmax(q, k, v, scale if scale is not None else
+                           d ** -0.5, block_k, mask_fn)
+
+
+def causal_blocked_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             scale: Optional[float] = None,
+                             q_chunk: int = 4096,
+                             block_k: int = 1024) -> torch.Tensor:
+    """Causal self-attention with triangular block skipping: q in
+    chunks of ``q_chunk`` rows, chunk i attending keys
+    ``[: (i + 1) * q_chunk]`` only.  Falls back to ``chunked_attention``
+    when lq is not a multiple of the chunk."""
+    lq, lk = q.shape[2], k.shape[2]
+    if lq != lk:
+        raise ValueError(f"the block-causal path expects self-attention, "
+                         f"got lq={lq}, lk={lk}")
+    qc = min(q_chunk, lq)
+    if lq % qc:
+        return chunked_attention(q, k, v, causal=True, scale=scale,
+                                 block_k=block_k)
+    outs = []
+    for i in range(lq // qc):
+        end = (i + 1) * qc
+        outs.append(chunked_attention(
+            q[:, :, i * qc:end], k[:, :, :end], v[:, :, :end],
+            causal=True, scale=scale, block_k=min(block_k, end)))
+    return torch.cat(outs, dim=2)
+
+
+def extend_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     offsets: torch.Tensor, scale: Optional[float] = None,
+                     block_k: int = 1024) -> torch.Tensor:
+    """Suffix queries over a per-row-offset cache (the KV prefix-reuse
+    path).  q: (b, hq, lq, d), row b's query i at global position
+    ``offsets[b] + i``; k, v: (b, hkv, lk, d), the whole cache.  Key j
+    is visible to query i iff ``j <= offsets[b] + i``, so cache rows
+    past a row's frontier are never observed."""
+    _check_gqa(q, k)
+    lq, d = q.shape[2], q.shape[3]
+    lk = k.shape[2]
+    qpos = offsets.to(device=q.device, dtype=torch.int64)[:, None] + \
+        torch.arange(lq, device=q.device)[None, :]               # (b, lq)
+
+    def mask_fn(kpos):
+        return (kpos < lk)[None, None, :] & \
+            (kpos[None, None, :] <= qpos[:, :, None])
+
+    return _online_softmax(q, k, v, scale if scale is not None else
+                           d ** -0.5, block_k, mask_fn)
+
+
+def dense_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           kv_len: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One-token decode attention as two grouped products (no scan),
+    in fp32.  q: (b, hq, 1, d); k, v: (b, hkv, lk, d); ``kv_len`` (b,)
+    masks each row's cache past its length."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    if lq != 1:
+        raise ValueError(f"decode attention takes one query, got {lq}")
+    _check_gqa(q, k)
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(b, hkv, g, d)
+    s = qg @ k.to(torch.float32).transpose(-1, -2)             # (b, h, g, lk)
+    if kv_len is not None:
+        valid = torch.arange(lk, device=q.device)[None, :] < \
+            kv_len.to(q.device)[:, None]                          # (b, lk)
+        s = s.masked_fill(~valid[:, None, None], NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = (p / l) @ v.to(torch.float32)
+    return out.reshape(b, hq, 1, d).to(q.dtype)

@@ -49,7 +49,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
 
 
 def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
-              launches: dict = None) -> dict:
+              launches: dict = None, expect: tuple = ()) -> dict:
     """Device milliseconds per call of each kernel whose name matches
     ``pattern`` (its first group names it) that ``fn`` launches, from
     ``torch.profiler`` over ``reps`` calls after a warm-up (empty if the
@@ -60,16 +60,16 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
     a first profiled step of ``reps`` calls is discarded (the schedule's
     warm-up), and each kernel's time is its mean over the launches
     recorded times its launches per call.  A profile that records no
-    device time at all is taken again, up to five times, each with twice
-    the calls of the one before (a step of a few short kernels can lose
-    every record)."""
+    device time at all, or none for a kernel named in ``expect``, is
+    taken again, up to five times, each with twice the calls of the one
+    before (a step of a few short kernels can lose every record of
+    one)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    out = {}
     for attempt in range(5):
         calls = reps << attempt
-        kept = []
+        out, kept = {}, []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1),
@@ -88,7 +88,7 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
                 per_call = dev_us / e.count * max(1, round(e.count / calls))
                 out[name.group(1)] = out.get(name.group(1), 0.0) + \
                     per_call / 1e3
-        if out:
+        if out and all(k in out for k in expect):
             break
     if launches is not None:
         for e in kept:

@@ -8,9 +8,12 @@ under the same names, and hand them out cast to the compute dtype
 (``params(dtype)``); the cast is part of the autograd graph, so the
 gradients reach the fp32 master weights.
 
-Only the training branch of ``attention_fwd`` is ported (no KV cache):
-it runs ``flash_attention``, the CUDA kernels on the card.  The MoE FFN
-is not ported.
+``attention_fwd`` has the reference's three branches.  Without a KV
+cache (training) it runs ``flash_attention``, the CUDA kernels on the
+card.  With one (serving) it writes the new K/V into the cache in
+place and attends with the plain compositions of
+``kernels/flash_attention/ops.py``, as the JAX package's cache branches
+run XLA and no Pallas kernel.  The MoE FFN is not ported.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common.config import LMConfig, not_ported
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import \
+    causal_blocked_attention, chunked_attention, dense_decode_attention, \
+    extend_attention, flash_attention
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,7 +62,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 def rope_angles(positions: torch.Tensor, d_head: int,
                 theta: float = 10000.0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (l,) int -> (l, half) cos/sin."""
+    """positions: (l,) or (b, l) int -> (..., l, half) cos/sin."""
     half = d_head // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=positions.device) / half)
@@ -67,11 +72,14 @@ def rope_angles(positions: torch.Tensor, d_head: int,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: (b, h, l, d); cos/sin: (l, half).  The halves rotate (not
-    interleaved pairs); x times the fp32 cos/sin promotes to fp32, and
-    the result returns to x's dtype."""
+    """x: (b, h, l, d); cos/sin: (l, half) or (b, l, half).  The halves
+    rotate (not interleaved pairs); x times the fp32 cos/sin promotes to
+    fp32, and the result returns to x's dtype."""
     half = x.shape[-1] // 2
-    c, s = cos[None, None], sin[None, None]
+    if cos.dim() == 2:
+        c, s = cos[None, None], sin[None, None]
+    else:
+        c, s = cos[:, None], sin[:, None]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
@@ -159,13 +167,58 @@ def attention_init(generator: torch.Generator, cfg: LMConfig,
     return attn
 
 
+def _write_kv(cache: torch.Tensor, new: torch.Tensor, starts,
+              write) -> None:
+    """Write ``new`` (b, hkv, l, hd) into ``cache`` (B, hkv, max_len, hd)
+    in place: batch row ``src[j]`` into cache row ``dst[j]`` (every row
+    into its own when ``write`` is None) at ``starts``, an int or a (b,)
+    tensor of per-row positions on the cache's device.  A start is
+    clamped so the l positions fit, as ``lax.dynamic_update_slice``
+    clamps it."""
+    l, max_len = new.shape[2], cache.shape[2]
+    new = new.to(cache.dtype)
+    if isinstance(starts, int):
+        at = max(0, min(starts, max_len - l))
+        if write is None:
+            cache[:, :, at:at + l] = new
+        else:
+            src, dst = write
+            cache[dst, :, at:at + l] = new[src]
+        return
+    src, dst = write if write is not None else \
+        (torch.arange(new.shape[0], device=cache.device),) * 2
+    pos = starts[src].clamp(0, max_len - l)[:, None] + \
+        torch.arange(l, device=cache.device)[None, :]             # (n, l)
+    cache[dst[:, None], :, pos] = new[src].transpose(1, 2)
+
+
 def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
                   positions: torch.Tensor, *, causal: bool = True,
-                  kv_cache=None, cache_len=None):
-    """x: (b, l, d) -> (out (b, l, d), None).  Only the training branch
-    (no KV cache) is ported."""
-    if kv_cache is not None or cache_len is not None:
-        raise not_ported("attention over a KV cache", "3. LM serving")
+                  kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                  cache_len=None, block_k: int = 1024, write=None):
+    """x: (b, l, d) -> (out (b, l, d), cache).
+
+    Without ``kv_cache`` (training): attention over the current sequence
+    by ``flash_attention``; the cache returned is None.
+
+    With ``kv_cache`` (``{"k", "v"}``, each (b, hkv, max_len, hd)) the
+    current K/V are written into it in place and it is returned:
+    - ``cache_len`` a (b,) tensor: per-row offsets (the prefix-reuse
+      extend path).  Row b's K/V land at ``[cache_len[b], + l)`` and its
+      queries attend the cache causally over global positions
+      (``extend_attention``; ``dense_decode_attention`` for one token).
+    - ``cache_len`` an int (or None for 0): one offset for every row.
+      Prefill (l > 1) attends the current sequence only (the cache
+      starts empty); decode reads the cache's first ``cache_len + 1``
+      positions, a view, since eager torch, unlike the traced
+      reference, can size it by a host integer (the masked tail the
+      reference also reads scores 0).
+
+    ``write`` = (src, dst) index tensors writes batch row ``src[j]``
+    into cache row ``dst[j]`` and no other row; None writes every row
+    into its own.  Rows not written still compute (and the caller
+    discards) their outputs, so every shape is that of the whole batch.
+    """
     b, l, d = x.shape
     h, hd = cfg.n_heads, cfg.d_head
     hkv = cfg.n_kv_heads
@@ -184,9 +237,42 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    out = flash_attention(q, k, v, causal=causal)
+    if kv_cache is None:
+        if cache_len is not None:
+            raise ValueError("cache_len without a kv_cache")
+        out = flash_attention(q, k, v, causal=causal)
+    elif torch.is_tensor(cache_len) and cache_len.dim() >= 1:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        starts = cache_len.to(device=ck.device, dtype=torch.int64)
+        _write_kv(ck, k, starts, write)
+        _write_kv(cv, v, starts, write)
+        if l > 1:
+            out = extend_attention(q, ck, cv, offsets=starts,
+                                   block_k=block_k)
+        else:
+            out = dense_decode_attention(q, ck, cv, kv_len=starts + l)
+    else:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        start = 0 if cache_len is None else int(cache_len)
+        _write_kv(ck, k, start, write)
+        _write_kv(cv, v, start, write)
+        if l > 1:
+            if causal and l >= 2048:
+                out = causal_blocked_attention(q, k, v,
+                                               q_chunk=max(2048, l // 8))
+            else:
+                out = chunked_attention(q, k, v, causal=causal,
+                                        block_k=block_k)
+        elif cache_len is None:
+            out = dense_decode_attention(q, ck, cv)
+        else:
+            n = start + l
+            out = dense_decode_attention(
+                q, ck[:, :, :n], cv[:, :, :n],
+                kv_len=torch.full((b,), n, dtype=torch.int64,
+                                  device=x.device))
     out = out.transpose(1, 2).reshape(b, l, h * hd)
-    return out @ p["wo"], None
+    return out @ p["wo"], kv_cache
 
 
 # ---------------------------------------------------------------------------

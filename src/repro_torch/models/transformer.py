@@ -10,8 +10,14 @@ under ``torch.utils.checkpoint`` (non-reentrant), standing in for the
 activations are recomputed in the backward, attention's forward kernel
 included.
 
-Serving (``prefill``, ``prefill_padded``, ``prefill_extend``,
-``decode_step``) and MoE are not ported yet and raise.
+Serving runs the same layers over a KV cache (``make_kv_cache``: one
+zeroed tensor each for K and V, (n_layers, b, hkv, max_len, hd), the
+reference's layout) with no checkpoint: ``prefill``, ``prefill_padded``
+(the engine's bucketed admission), ``prefill_extend`` (a suffix over
+reused prefixes) and ``decode_step``.  Where the JAX functions return a
+new cache, these write the one they are given in place and return it;
+``slots`` and ``rows`` restrict the writes to the rows a serving engine
+keeps, so no call copies a cache.  MoE is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -89,12 +95,15 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 # forward
 # ---------------------------------------------------------------------------
 def _layer_fwd(layer: DecoderLayer, x: torch.Tensor, cfg: LMConfig,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, kv_cache=None, cache_len=None,
+               write=None) -> torch.Tensor:
     # mixed precision: compute in the residual-stream dtype, master
-    # weights stay fp32 in the optimizer
+    # weights stay fp32 in the optimizer (a no-op cast for a model held
+    # in the compute dtype, as the serving engine holds it)
     lp = layer.params(x.dtype)
     h, _ = attention_fwd(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                         cfg, positions, causal=True)
+                         cfg, positions, causal=True, kv_cache=kv_cache,
+                         cache_len=cache_len, write=write)
     x = x + h
     y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + swiglu_fwd(lp["ffn"], y)
@@ -120,8 +129,8 @@ def _logits(model: LM, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 # training
 # ---------------------------------------------------------------------------
 def _as_tokens(a, device: torch.device) -> torch.Tensor:
-    if isinstance(a, np.ndarray):
-        a = torch.from_numpy(a)
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.asarray(a))
     return a.to(device=device, dtype=torch.int64)
 
 
@@ -147,17 +156,137 @@ def loss_fn(model: LM, batch: Dict, cfg: LMConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# serving: not ported
+# serving
 # ---------------------------------------------------------------------------
-def _serving(name: str):
-    def fn(*args, **kwargs):
-        raise not_ported(f"transformer.{name}", "3. LM serving")
-    fn.__name__ = name
-    fn.__doc__ = "Not ported yet: raises (ROADMAP queue 1, LM serving)."
-    return fn
+KVCache = Dict[str, torch.Tensor]
 
 
-prefill = _serving("prefill")
-prefill_padded = _serving("prefill_padded")
-prefill_extend = _serving("prefill_extend")
-decode_step = _serving("decode_step")
+def make_kv_cache(cfg: LMConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> KVCache:
+    """``{"k", "v"}``, each (n_layers, batch, hkv, max_len, hd), zeroed
+    on ``device`` (default ``cuda``).  Zeros, not uninitialised memory:
+    positions past a row's frontier are read under a mask, and only a
+    finite value there contributes exactly 0."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cached_backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
+                     positions: torch.Tensor, caches: KVCache, cache_len,
+                     write=None) -> torch.Tensor:
+    """Every layer in order over its slice of ``caches`` (written in
+    place), then the final norm."""
+    for i, layer in enumerate(model.layers):
+        x = _layer_fwd(layer, x, cfg, positions,
+                       {"k": caches["k"][i], "v": caches["v"][i]},
+                       cache_len, write)
+    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+
+
+def _last_real(x: torch.Tensor, lengths) -> torch.Tensor:
+    """(b, l, d) -> (b, 1, d): each row at its last real position."""
+    b, l, _ = x.shape
+    last = (_as_tokens(lengths, x.device) - 1).clamp(0, l - 1)
+    return x[torch.arange(b, device=x.device), last][:, None]
+
+
+def _index(rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def prefill(model: LM, tokens, cfg: LMConfig, max_len: Optional[int] = None,
+            *, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, KVCache]:
+    """Full-sequence forward of ``tokens`` (b, l): (last-position logits
+    (b, vocab), a new cache of ``max_len`` positions)."""
+    b, l = np.shape(tokens)
+    return prefill_padded(model, tokens, np.full(b, l), cfg, max_len,
+                          compute_dtype=compute_dtype)
+
+
+@torch.no_grad()
+def prefill_padded(model: LM, tokens, lengths, cfg: LMConfig,
+                   max_len: Optional[int] = None, *,
+                   compute_dtype=torch.bfloat16,
+                   caches: Optional[KVCache] = None,
+                   slots=None) -> Tuple[torch.Tensor, KVCache]:
+    """Right-padded batched prefill (the engine's bucketed admission).
+
+    ``tokens`` (b, l) right-padded to a shared bucket, ``lengths`` (b,)
+    the true lengths.  Causal masking keeps every real position
+    independent of the padding tail, so row b's logits (taken at
+    ``lengths[b] - 1``) and cache positions ``[: lengths[b]]`` are those
+    of its own unpadded ``prefill``.  Returns (logits (b, vocab), the
+    cache).
+
+    Without ``caches`` a new one of ``max_len`` positions holds every
+    row.  With ``caches``, batch row j's K/V go into positions
+    ``[0, l)`` of its row ``slots[j]`` (every row into its own when
+    ``slots`` is None); rows past ``len(slots)`` are computed and not
+    written, and positions past l keep what they held."""
+    tokens = _as_tokens(tokens, model.device)
+    b, l = tokens.shape
+    write = None
+    if caches is None:
+        caches = make_kv_cache(cfg, b, max_len or l, compute_dtype,
+                               model.device)
+    elif slots is not None:
+        dst = _index(slots, model.device)
+        write = (torch.arange(len(dst), device=model.device), dst)
+    x = model.embed[tokens].to(compute_dtype)
+    x = _cached_backbone(model, x, cfg, torch.arange(l, device=model.device),
+                         caches, 0, write)
+    return _logits(model, _last_real(x, lengths), cfg)[:, 0], caches
+
+
+@torch.no_grad()
+def prefill_extend(model: LM, tokens, lengths, offsets, caches: KVCache,
+                   cfg: LMConfig, *, compute_dtype=torch.bfloat16,
+                   rows=None) -> Tuple[torch.Tensor, KVCache]:
+    """Suffix prefill over per-row cache prefixes (the KV prefix-reuse
+    admission path).
+
+    ``tokens`` (b, l) suffixes right-padded to a shared bucket,
+    ``lengths`` (b,) their true lengths, ``offsets`` (b,) the prefix
+    length already in each cache row.  Row b's token i runs at global
+    position ``offsets[b] + i`` (RoPE, cache write, causal mask), so its
+    K/V and logits are those of a cold full-prompt prefill whose first
+    ``offsets[b]`` tokens made the prefix.  Only ``rows`` (default:
+    all) are written into ``caches``; a row of length 0 computes
+    garbage the caller discards.  Returns (logits (b, vocab), caches)."""
+    tokens = _as_tokens(tokens, model.device)
+    b, l = tokens.shape
+    offsets = _as_tokens(offsets, model.device)
+    write = None
+    if rows is not None:
+        idx = _index(rows, model.device)
+        write = (idx, idx)
+    positions = offsets[:, None] + torch.arange(l, device=model.device)
+    x = model.embed[tokens].to(compute_dtype)
+    x = _cached_backbone(model, x, cfg, positions, caches, offsets, write)
+    return _logits(model, _last_real(x, lengths), cfg)[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(model: LM, tokens, caches: KVCache, cache_len: int,
+                cfg: LMConfig, *, compute_dtype=torch.bfloat16,
+                rows=None) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode of ``tokens`` (b, 1) at position ``cache_len``
+    (one int for every row): (logits (b, vocab), caches).  Only ``rows``
+    (default: all) are written into ``caches``."""
+    tokens = _as_tokens(tokens, model.device)
+    b, l = tokens.shape
+    cache_len = int(cache_len)
+    write = None
+    if rows is not None:
+        idx = _index(rows, model.device)
+        write = (idx, idx)
+    positions = cache_len + torch.arange(l, device=model.device)
+    x = model.embed[tokens].to(compute_dtype)
+    x = _cached_backbone(model, x, cfg, positions, caches, cache_len, write)
+    return _logits(model, x, cfg)[:, -1], caches
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,19 +1,25 @@
-"""End-to-end RAG serving: EraRAG retrieval -> context -> reader.
+"""End-to-end RAG serving: EraRAG retrieval -> prompt -> reader.
 
-The paper's Alg 2 as a service: questions retrieve a budgeted context
-from the hierarchical graph and the deterministic ``ExtractiveReader``
-answers from it, so Accuracy / Recall are measurable offline
-(containment metric, §IV).  ``answer_batch`` micro-batches questions
-end-to-end — one retrieval scan per round for the whole question block
-(``EraRAG.query_batch``); two-hop-shaped questions batch through the
-two-round multihop machinery.  ``answer`` is the sequential
-per-question oracle ``answer_batch`` must match answer for answer.
+The paper's Alg 2 as a service: queries retrieve a budgeted context
+from the hierarchical graph, the context + question form the reader
+prompt, and the reader answers.  ``answer_batch`` micro-batches
+concurrent questions end-to-end — one retrieval scan per round for the
+whole question block (``EraRAG.query_batch``) and, with an LM reader
+attached (``engine=``, a ``serving.Engine``), bucketed-prefill
+shared-slot decodes via ``Engine.generate_batch``.  Multihop questions
+batch too (``mode='multihop'``): round-1 retrieval, bridge extraction
+(ONE ``generate_batch`` when an LM reader is attached), round-2
+retrieval, and the final reader pass each run once per question
+*block*, so a B-question multihop batch costs exactly two reader
+launches and two batched retrieval rounds.  ``answer`` is the
+sequential per-question oracle ``answer_batch`` must match answer for
+answer.  Without an engine the deterministic ``ExtractiveReader``
+answers, so Accuracy / Recall are measurable offline (containment
+metric, §IV).
 
-Served here: the reader path (``engine=None``), an attached streaming
-``IngestService`` (``ingest=`` or ``attach_ingest``) and
-``index_report``, the serving-side view of the index over the obs
-registry's live collectors.  An LM reader (``engine=``) raises
-``NotImplementedError``.
+Also served: an attached streaming ``IngestService`` (``ingest=`` or
+``attach_ingest``) and ``index_report``, the serving-side view of the
+index over the obs registry's live collectors.
 """
 from __future__ import annotations
 
@@ -21,10 +27,9 @@ import re
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
-from repro_torch.common.config import not_ported
 from repro_torch.core.erarag import EraRAG
-from repro_torch.core.retrieve import Retrieval, default_bridge_fn, \
-    is_hop_question
+from repro_torch.core.retrieve import Retrieval, compose_hop_query, \
+    default_bridge_fn, is_hop_question
 from repro_torch.lifecycle.report import ShardLoadReport
 from repro_torch.obs.schema import INDEX_REPORT_SCHEMA
 from repro_torch.obs.trace import NULL_TRACER
@@ -89,28 +94,29 @@ class ExtractiveReader:
 class RAGPipeline:
     def __init__(self, rag: EraRAG, reader=None, engine=None,
                  ingest=None):
-        if engine is not None:
-            raise not_ported("an LM reader (engine=...)",
-                             "3. LM serving")
         self.rag = rag
         self.reader = reader or ExtractiveReader()
+        self.engine = engine  # optional LM reader (serving.Engine)
         self.ingest = ingest  # optional repro_torch.ingest.IngestService
         self._wire_obs()
 
     def _wire_obs(self) -> None:
         """Hand the pipeline's subsystems to the EraRAG observability
-        layer: the (possibly null) tracer flows onto the ingest service,
-        and live *collectors* land on the metrics registry so
-        ``index_report()`` is a view over it.  Collectors close over
-        ``self`` — never over a store object — so reshard/restore store
-        swaps need no re-registration."""
+        layer: the (possibly null) tracer flows onto the engine and the
+        ingest service, and live *collectors* land on the metrics
+        registry so ``index_report()`` is a view over it.  Collectors
+        close over ``self`` — never over a store or engine object — so
+        reshard/restore store swaps need no re-registration."""
         obs = self.rag.obs
+        if self.engine is not None:
+            self.engine.tracer = obs.tracer
         if self.ingest is not None:
             self.ingest.tracer = obs.tracer
         reg = obs.registry
         reg.register_collector("store", self._collect_store)
         reg.register_collector("retrieval", self._collect_retrieval)
         reg.register_collector("query_cache", self._collect_query_cache)
+        reg.register_collector("prefix_cache", self._collect_prefix_cache)
         reg.register_collector("ingest", self._collect_ingest)
         reg.register_collector("launches", self._collect_launches)
         reg.register_collector("obs", self._collect_obs)
@@ -158,6 +164,15 @@ class RAGPipeline:
         qc = self.rag.query_cache
         return qc.stats.to_dict() if qc is not None else {}
 
+    def _collect_prefix_cache(self) -> dict:
+        """Engine KV prefix-reuse counters; empty without an LM reader."""
+        eng = self.engine
+        if eng is None:
+            return {}
+        return {"hits": eng.stats["prefix_hits"],
+                "tokens_saved": eng.stats["prefix_tokens_saved"],
+                "entries": len(eng._prefix_cache)}
+
     def _collect_ingest(self) -> dict:
         """Write-path health: summary-cache movement and, when a
         streaming IngestService is attached, its queue depth /
@@ -175,7 +190,8 @@ class RAGPipeline:
     def _collect_launches(self) -> dict:
         """Per-subsystem launch accounting: embedder encode calls,
         summarizer materializations, retrieval sweep rounds, store
-        maintenance turns and the store's scans."""
+        maintenance turns and the store's scans, and (with an LM
+        reader) the engine's prefill and decode launches."""
         store = self.rag.store
         launches = {
             "retrieval_rounds": self.rag.stats["retrieval_rounds"],
@@ -188,6 +204,14 @@ class RAGPipeline:
         if emb_stats is not None:
             launches["embedder"] = dict(emb_stats)
         launches["summarizer"] = dict(self.rag.graph.stats)
+        if self.engine is not None:
+            launches["engine"] = {
+                "prefill_launches":
+                    self.engine.stats["prefill_launches"],
+                "decode_launches":
+                    self.engine.stats["decode_launches"],
+                "generate_batches":
+                    self.engine.stats["generate_batches"]}
         return launches
 
     def _collect_obs(self) -> dict:
@@ -201,11 +225,8 @@ class RAGPipeline:
     def index_report(self) -> dict:
         """Serving-side index health as a view over the obs registry:
         every section is one registered collector (``store``,
-        ``retrieval``, ``query_cache``, ``ingest``, ``launches``,
-        ``obs``), read live at call time.  The reference's
-        ``prefix_cache`` section reports the LM engine's KV reuse; the
-        port has no engine yet (``engine=`` raises), so it has no such
-        collector.  The same
+        ``retrieval``, ``query_cache``, ``prefix_cache``, ``ingest``,
+        ``launches``, ``obs``), read live at call time.  The same
         collectors back ``registry.snapshot()`` and
         ``registry.to_prometheus()``, so the report, the flat metric
         view and the text exposition cannot drift apart.  Every numeric
@@ -213,7 +234,7 @@ class RAGPipeline:
         reg = self.rag.obs.registry
         report = dict(reg.collect("store"))
         report["retrieval_rounds"] = reg.collect("retrieval")["rounds"]
-        for section in ("query_cache", "ingest"):
+        for section in ("query_cache", "prefix_cache", "ingest"):
             got = reg.collect(section)
             if got:
                 report[section] = got
@@ -223,20 +244,84 @@ class RAGPipeline:
             report["obs"] = obs
         return report
 
+    @staticmethod
+    def _prefix(context: str) -> str:
+        """The reusable context block of the reader prompts — declared
+        to the engine's KV prefix cache so N questions over one
+        retrieved context pay its prefill once.  Ends at a whitespace
+        boundary, so prefix tokens are a prefix of prompt tokens."""
+        return f"Context:\n{context}\n\n"
+
+    @classmethod
+    def _prompt(cls, question: str, context: str) -> str:
+        return cls._prefix(context) + f"Question: {question}\nAnswer:"
+
+    @classmethod
+    def _bridge_prompt(cls, question: str, context: str) -> str:
+        return cls._prefix(context) + \
+            f"Question: {question}\nBridge entity:"
+
+    def _generate(self, prompts: List[str], contexts: List[str],
+                  batched: bool) -> List[str]:
+        """The engine's answers to ``prompts``, each declaring its
+        context block as the reusable prefix: ONE ``generate_batch`` on
+        the batched path, one ``generate`` a prompt on the oracle
+        path."""
+        prefixes = [self._prefix(c) for c in contexts]
+        if batched:
+            return self.engine.generate_batch(prompts, prefixes=prefixes)
+        return [self.engine.generate(p, prefix=px)
+                for p, px in zip(prompts, prefixes)]
+
+    def _bridge_fn(self, batched: bool):
+        """Bridge resolution for the multihop rounds.  The
+        deterministic regex gate decides WHICH questions take a second
+        hop (so batched and per-question paths agree on short-
+        circuits); with an LM reader attached the follow-up query is
+        composed from its bridge-extraction output."""
+        if self.engine is None:
+            return None  # retrieve.default_bridge_fn
+
+        def fn(questions, retrievals):
+            bridges = default_bridge_fn(questions, retrievals)
+            gated = [i for i, b in enumerate(bridges) if b]
+            if not gated:
+                return bridges
+            outs = self._generate(
+                [self._bridge_prompt(questions[i], retrievals[i].context)
+                 for i in gated],
+                [retrievals[i].context for i in gated], batched)
+            for i, entity in zip(gated, outs):
+                bridges[i] = compose_hop_query(questions[i], entity)
+            return bridges
+
+        return fn
+
     def _multihop(self, questions: List[str], batched: bool
                   ) -> List[RAGAnswer]:
-        """Two-round multihop answering.  ``batched=True`` serves the
-        block as ONE round-1 retrieval batch and ONE round-2 batch;
+        """Two-round multihop answering.  ``batched=True`` groups the
+        block: ONE round-1 retrieval batch, ONE bridge-extraction
+        launch, ONE round-2 batch, ONE final reader launch.
         ``batched=False`` is the sequential per-question oracle."""
+        bridge_fn = self._bridge_fn(batched)
         if batched:
-            rets = self.rag.query_batch(questions, mode="multihop")
+            rets = self.rag.query_batch(questions, mode="multihop",
+                                        bridge_fn=bridge_fn)
         else:
-            rets = [self.rag.query(q, mode="multihop")
+            rets = [self.rag.query(q, mode="multihop",
+                                   bridge_fn=bridge_fn)
                     for q in questions]
         with self.rag.obs.tracer.span("compose", n=len(questions),
                                       multihop=True):
-            texts = [self.reader.answer(r.bridge_query or q, r.context)
-                     for q, r in zip(questions, rets)]
+            if self.engine is not None:
+                texts = self._generate(
+                    [self._prompt(q, r.context)
+                     for q, r in zip(questions, rets)],
+                    [r.context for r in rets], batched)
+            else:
+                texts = [self.reader.answer(r.bridge_query or q,
+                                            r.context)
+                         for q, r in zip(questions, rets)]
         return [RAGAnswer(answer=t, context=r.context,
                           n_context_tokens=r.n_tokens,
                           hits=len(r.hits),
@@ -249,11 +334,15 @@ class RAGPipeline:
         ``answer_batch`` must match it answer-for-answer."""
         tr = self.rag.obs.tracer
         with tr.span("query", n=1, mode=mode):
-            if mode == "multihop" or is_hop_question(question):
+            if mode == "multihop" or (self.engine is None
+                                      and is_hop_question(question)):
                 return self._multihop([question], batched=False)[0]
             r = self.rag.query(question, mode=mode)
             with tr.span("compose", n=1):
-                text = self.reader.answer(question, r.context)
+                text = (self._generate([self._prompt(question, r.context)],
+                                       [r.context], batched=False)[0]
+                        if self.engine is not None
+                        else self.reader.answer(question, r.context))
             return RAGAnswer(answer=text, context=r.context,
                              n_context_tokens=r.n_tokens,
                              hits=len(r.hits),
@@ -261,9 +350,11 @@ class RAGPipeline:
 
     def answer_batch(self, questions: Sequence[str],
                      mode: str = "collapsed") -> List[RAGAnswer]:
-        """Answer a question block with shared scans: one batched
-        retrieval scan per round.  ``mode='multihop'`` batches both
-        rounds end-to-end; two-hop-shaped questions route through the
+        """Answer a question block with shared launches: one batched
+        retrieval scan per round and (with an LM reader) bucketed
+        prefill with every prompt in an engine slot at once.
+        ``mode='multihop'`` batches both rounds end-to-end; on the
+        extractive path, two-hop-shaped questions route through the
         same batched multihop machinery (there is no per-question
         fallback)."""
         questions = list(questions)
@@ -275,15 +366,22 @@ class RAGPipeline:
                 return self._multihop(questions, batched=True)
             out: List[Optional[RAGAnswer]] = [None] * len(questions)
             hop = [i for i, q in enumerate(questions)
-                   if is_hop_question(q)]
+                   if self.engine is None and is_hop_question(q)]
             hop_set = set(hop)
             plain = [i for i in range(len(questions)) if i not in hop_set]
             if plain:
                 rets = self.rag.query_batch(
                     [questions[i] for i in plain], mode=mode)
                 with tr.span("compose", n=len(plain)):
-                    texts = [self.reader.answer(questions[i], r.context)
-                             for i, r in zip(plain, rets)]
+                    if self.engine is not None:
+                        texts = self._generate(
+                            [self._prompt(questions[i], r.context)
+                             for i, r in zip(plain, rets)],
+                            [r.context for r in rets], batched=True)
+                    else:
+                        texts = [self.reader.answer(questions[i],
+                                                    r.context)
+                                 for i, r in zip(plain, rets)]
                 for i, r, text in zip(plain, rets, texts):
                     out[i] = RAGAnswer(answer=text, context=r.context,
                                        n_context_tokens=r.n_tokens,

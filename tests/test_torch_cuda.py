@@ -1203,3 +1203,119 @@ def test_ingest_service_on_card_is_the_sync_insert(cuda):
     for x, y in zip(live.query_batch(qs), twin.query_batch(qs)):
         assert [(h.node_id, h.score) for h in x.hits] == \
             [(h.node_id, h.score) for h in y.hits]
+
+
+# ---------------------------------------------------------------------------
+# LM serving (plain torch on the card: the engine's attention runs the
+# cache compositions, no kernel of csrc/)
+# ---------------------------------------------------------------------------
+SERVE_PROMPTS = ["alpha beta", "tell me about alpha beta",
+                 "gamma delta question about the river",
+                 "a considerably longer question that lands in a larger "
+                 "padded bucket than the short prompts do",
+                 "epsilon zeta words"]
+SERVE_LOGIT_TOL = 1e-4      # fp32 tiny engine, card against CPU
+
+
+class _StepLogits:
+    """Each request's logits by step, read by wrapping the engine's
+    ``_pick``."""
+
+    def __init__(self, engine):
+        self.rows = {}
+        pick = engine._pick
+
+        def observed(logits, rows, keys):
+            for row, (rid, step) in zip(rows, keys):
+                self.rows[rid, step] = logits[row].detach().to(
+                    "cpu", torch.float32)
+            return pick(logits, rows, keys)
+
+        engine._pick = observed
+
+
+def _margin_rule(a, b, outs_a, outs_b):
+    """Tokens equal, or where a request's tokens part the smaller top-1
+    over top-2 margin lies within the logit difference at that step.
+    Returns the largest logit difference over the steps compared."""
+    worst = 0.0
+    for rid, (x, y) in enumerate(zip(outs_a, outs_b)):
+        for step in range(max(len(x.split()), len(y.split())) + 1):
+            if (rid, step) not in a.rows or (rid, step) not in b.rows:
+                break
+            la, lb = a.rows[rid, step], b.rows[rid, step]
+            diff = float((la - lb).abs().max())
+            worst = max(worst, diff)
+            if int(la.argmax()) != int(lb.argmax()):
+                margin = min(float(t[0] - t[1]) for t in
+                             (torch.topk(la, 2).values,
+                              torch.topk(lb, 2).values))
+                assert margin <= diff, (rid, step, margin, diff)
+                break
+    return worst
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """The tiny recipe (weights drawn once on the CPU) gives the CPU's
+    tokens and stats on the card, logits within SERVE_LOGIT_TOL."""
+    from repro_torch.serving.testing import make_test_engine
+    engines = [make_test_engine(max_batch=5, device=d)
+               for d in ("cpu", cuda)]
+    logs = [_StepLogits(e) for e in engines]
+    outs = [e.generate_batch(SERVE_PROMPTS) for e in engines]
+    assert _margin_rule(*logs, *outs) <= SERVE_LOGIT_TOL
+    assert engines[0].stats == engines[1].stats
+    assert engines[1].caches["k"].is_cuda
+
+
+def test_engine_launches_write_only_their_rows_on_card(cuda):
+    """Every prefill, extend and decode launch on the card leaves each
+    cache row outside its group bitwise unchanged."""
+    from repro_torch.serving.testing import make_test_engine
+    eng = make_test_engine(max_batch=4, prefix_cache_entries=2,
+                           max_new_tokens=5, device=cuda)
+    seen = []
+
+    def guard(fn, at):
+        def run(*args):
+            before = {n: c.clone() for n, c in eng.caches.items()}
+            out = fn(*args)
+            rows = set(args[at])
+            for n, c in eng.caches.items():
+                for r in range(c.shape[1]):
+                    if r not in rows:
+                        assert torch.equal(c[:, r], before[n][:, r])
+            seen.append(at)
+            return out
+        return run
+
+    eng._prefill_bucket = guard(eng._prefill_bucket, 2)
+    eng._prefill_extend = guard(eng._prefill_extend, 3)
+    eng._decode_step = guard(eng._decode_step, 2)
+    prefix = "Context:\nThe capital of France is Paris .\n\n"
+    prompts = [prefix + f"Question: q{i}\nAnswer:" for i in range(5)]
+    eng.generate_batch(SERVE_PROMPTS[:2] + prompts,
+                       prefixes=[None, None] + [prefix] * 5)
+    assert eng.stats["prefix_hits"] > 0 and len(set(seen)) == 2
+
+
+def test_engine_batched_equals_sequential_on_card_bf16(cuda):
+    """bf16 on the card, one ``max_batch``: a batch and the same prompts
+    one at a time run the same GEMM shapes, so every step's logits are
+    bitwise equal."""
+    from repro_torch.common.config import LMConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = LMConfig(name="t", family="lm-dense", n_layers=2, d_model=128,
+                   n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=1024,
+                   max_seq_len=128)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(3),
+                        dtype=torch.bfloat16)
+    ecfg = EngineConfig(max_batch=5, max_seq_len=64, max_new_tokens=6,
+                        compute_dtype=torch.bfloat16)
+    bat, seq = Engine(cfg, model, ecfg), Engine(cfg, model, ecfg)
+    logs = [_StepLogits(e) for e in (bat, seq)]
+    outs = [bat.generate_batch(SERVE_PROMPTS),
+            [seq.generate(p) for p in SERVE_PROMPTS]]
+    assert _margin_rule(*logs, *outs) == 0.0
+    assert outs[0] == outs[1]

@@ -252,18 +252,23 @@ def test_schema_is_the_reference_schema():
 # -- index_report ------------------------------------------------------
 def test_index_report_schema_drift_check():
     """Every numeric key the fully-loaded report surfaces must be
-    declared; an undeclared counter is exactly what this gate is for
-    (no engine here: ``engine=`` is item 3, LM serving)."""
+    declared, the LM engine's sections included; an undeclared counter
+    is exactly what this gate is for."""
+    from repro_torch.serving.testing import make_test_engine
     corpus = _corpus(n=8)
     cfg = dataclasses.replace(
         CFG, index_shards=2, query_cache=True, quantized_scan=True,
         obs_trace=True, token_budget=192)
     rag = _rag(cfg, corpus)
+    engine = make_test_engine(max_batch=4, max_seq_len=256,
+                              max_new_tokens=3, seed=0,
+                              prefix_cache_entries=4, device="cpu")
     svc = IngestService(rag)
-    pipe = RAGPipeline(rag, ingest=svc)
+    pipe = RAGPipeline(rag, engine=engine, ingest=svc)
     pipe.answer_batch([qa.question for qa in corpus.qa][:3])
     rep = pipe.index_report()
     assert undeclared(rep) == []
+    assert "prefix_cache" in rep and "engine" in rep["launches"]
     assert rep["launches"]["store"]["kernel_launches"] >= 1
     assert rag.obs.registry.declared == INDEX_REPORT_SCHEMA
     # the check actually fires on a novel counter
@@ -272,7 +277,7 @@ def test_index_report_schema_drift_check():
     # registry exposition walks the same collectors without error
     prom = rag.obs.registry.to_prometheus()
     assert "launches_store_kernel_launches" in prom
-    assert "prefix_cache" not in rep
+    assert "launches_engine_generate_batches" in prom
 
 
 def test_index_report_values_match_live_objects():

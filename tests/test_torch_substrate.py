@@ -33,6 +33,7 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.kernels.common import resolve_device
 from repro_torch.serving.rag_pipeline import RAGPipeline
+from repro_torch.serving.testing import make_test_engine
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -156,9 +157,6 @@ def test_unported_serving_and_store_paths_raise():
     cfg = dataclasses.replace(ERARAG_DEFAULT, embed_dim=16)
     rag = EraRAG(cfg, HashingEmbedder(dim=16), device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*3. LM serving"):
-        RAGPipeline(rag, engine=object())
-    with pytest.raises(NotImplementedError,
                        match="ROADMAP.*6. Lifecycle and checkpoint"):
         rag.store.attach_lifecycle(object())
     # the serving front of slice 10 is served
@@ -166,6 +164,15 @@ def test_unported_serving_and_store_paths_raise():
     assert EraRAG(dataclasses.replace(cfg, query_cache=True),
                   HashingEmbedder(dim=16),
                   device="cpu").query_cache is not None
+    # and the LM reader of slice 11: one question through a pipeline
+    # with a tiny engine
+    rag.insert_docs([("d0", "The color of alpha is red. Alpha lives in "
+                            "the north.")])
+    pipe = RAGPipeline(rag, engine=make_test_engine(device="cpu"))
+    ans = pipe.answer("What is the color of alpha?")
+    assert ans.hits > 0 and ans.answer.startswith("tok")
+    assert pipe.index_report()["launches"]["engine"][
+        "generate_batches"] == 1
 
 
 def _not_ported_items():

@@ -294,14 +294,24 @@ def test_init_params_scales_and_layout():
 def test_unported_paths_raise():
     cfg = _port_cfg("llama3-8b")
     model = T.init_params(cfg, torch.Generator())
-    for fn in (T.prefill, T.prefill_padded, T.prefill_extend,
-               T.decode_step):
-        with pytest.raises(NotImplementedError, match="LM serving"):
-            fn(model, None, cfg)
+    # LM serving is ported (slice 11): the forward passes over a KV
+    # cache run on the reduced config (their parity with the JAX
+    # package is tests/test_torch_serving.py)
+    tokens = torch.arange(4, 12)[None]
+    logits, cache = T.prefill(model, tokens, cfg, max_len=9,
+                              compute_dtype=torch.float32)
+    assert logits.shape == (1, cfg.vocab_size)
+    step, _ = T.decode_step(model, tokens[:, :1], cache, 8, cfg,
+                            compute_dtype=torch.float32)
+    assert torch.isfinite(step).all() and cache["k"][:, :, :, 8].any()
     p = model.layers[0].attn.params(torch.float32)
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="LM serving"):
-        L.attention_fwd(p, x, cfg, torch.arange(4), kv_cache={})
+    x = torch.ones(1, 4, cfg.d_model)
+    kv = {n: torch.zeros(1, cfg.n_kv_heads, 8, cfg.d_head)
+          for n in ("k", "v")}
+    with torch.no_grad():
+        L.attention_fwd(p, x, cfg, torch.arange(4), kv_cache=kv,
+                        cache_len=0)
+    assert kv["k"][:, :, :4].any() and not kv["k"][:, :, 4:].any()
     with pytest.raises(NotImplementedError, match="Adafactor"):
         O.make_train_step(None, optimizer="adafactor")
     with pytest.raises(NotImplementedError, match="Adafactor"):
