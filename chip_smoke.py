@@ -163,6 +163,42 @@ package.  Phases, each printing one JSON line:
                  runs of the same prompts give equal tokens, or where
                  they part the smaller top-1 over top-2 margin lies
                  within the largest logit difference at that step.
+6k. ``lifecycle`` the quantized index that ``sharded_path`` resharded
+                 to 4 (before it is dropped): a ``LifecyclePolicy``
+                 stages a migration to 8 shards from ``refresh()``; after
+                 2 of the 8 target shards a ``LifecycleManager``
+                 snapshot, restored twice (resumed from the staged
+                 shards and replayed, the scan settings passed
+                 explicitly); the three migrations finished by
+                 ``refresh()`` turns (6, 6, 8), every hit bitwise equal
+                 among them and, sequence numbers aside, to a fresh
+                 8-shard build; then the last growth round removed and a
+                 tombstone-triggered same-width replay, equal to a fresh
+                 build.  ``lsh_hash`` (the code planes re-hashed),
+                 ``hamming_topk`` (list route) and the rescore must
+                 launch; every shape they launched is held against its
+                 plain version.  Snapshot seconds and bytes, restore
+                 seconds.
+6l. ``live_day`` ``LiveHarness`` on ``ERARAG_DEFAULT`` with 4 shards and
+                 the query cache over the main path's corpus cut to 2000
+                 documents (``make_schedule(seed=0, query_batch=64,
+                 queries_per_phase=4)``, compaction threshold 0.15, the
+                 extractive reader; a walk of the schedule, checked
+                 against the service's deepest queue, shows the 5000
+                 documents' schedule over the ingest queue's bound at
+                 2, 4 and 8 bursts): ingest bursts, removals, Zipf query
+                 batches, a snapshot and restore mid-stream and a policy
+                 migration to 8 shards, gated inside ``run()``
+                 (availability 1.0, completion, bitwise parity with the
+                 synchronous replay).  Per-phase p50/p99 batch ms, the
+                 migration record, the store counters (compactions
+                 >= 1, 8 reshard steps), snapshot seconds and bytes,
+                 restore seconds, and the launches; every ``mips_topk``
+                 and ``lsh_hash`` shape the day launched held against
+                 its plain version (a scan's queries also one at a
+                 time).  The shapes are recorded during the timed
+                 batches: a copy on the card of each new shape's
+                 inputs, with no wait for the host.
     ``sharded_2_22`` 2^22 rows hash-routed into 4 slots of one stacked
                  buffer (capacity the largest slot): the per-slot
                  ``mips_topk`` scans plus the merge against
@@ -196,10 +232,17 @@ package.  Phases, each printing one JSON line:
                  (plain versions); losses and weights must agree, and
                  the card's fp32 attention must have run on the FMA
                  kernels only.
+9b. ``train_resume`` llama3-8b at ``reduced()`` in bf16 through
+                 ``run_training``: 6 steps unbroken against 3 steps with
+                 ``ckpt_dir`` and a resume to 6 in a fresh model; losses,
+                 weights and both AdamW moments (the final checkpoints)
+                 bitwise equal; the resume on the bf16 attention kernels
+                 only, its shape held against the plain version.
 10. ``kernels``  one line listing every kernel with its numbers (the
                  ``lsh_hash`` and ``mips_topk`` entries with the
                  launches of phases 6c-6e and 6g-6j beside the main
-                 path's).
+                 path's, and every entry with the launches of
+                 ``live_day``, ``lifecycle`` and ``train_resume``).
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -442,11 +485,11 @@ def lsh_flips(got, want, v, h, label):
     return n_flipped, max_flip_proj
 
 
-def lsh_case(v, h, label):
-    """The kernel against its plain version on rows ``v`` under planes
-    ``h``: bits outside the flip band, the grid, one launch a call (the
-    wrapper's count; the profiler must see the kernel alone, at most once
-    a call, as it may drop records), event and device-only times."""
+def lsh_times(v, h):
+    """The kernel's and the plain version's times on rows ``v`` under
+    planes ``h``: grid, event and device-only times (the profiler must
+    see the kernel alone, at most once a call, as it may drop records)
+    beside the bound."""
     from repro_torch.kernels.common import lsh_grid, sm_count
     from repro_torch.kernels.lsh_hash import ops
     from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
@@ -454,20 +497,8 @@ def lsh_case(v, h, label):
 
     n, d = v.shape
     k = h.shape[1]
-
-    def plain():   # its zero-padded bits beyond k are already 0
-        return lsh_hash_ref(v, h)
-
-    before = ops.launch_count()
-    got = ops.lsh_hash(v, h)
-    check(ops.launch_count() == before + 1,
-          f"lsh_hash {label}: {ops.launch_count() - before} launches for "
-          f"one call")
-    want = plain()
-    torch.cuda.synchronize()
-    n_flipped, max_flip_proj = lsh_flips(got, want, v, h, label)
     ms = time_ms(lambda: ops.lsh_hash(v, h))
-    plain_ms = time_ms(plain, reps=5)
+    plain_ms = time_ms(lambda: lsh_hash_ref(v, h), reps=5)
     n_words = -(-k // 32)
     bound_ms, bound_by = bound(4.0 * (n * d + d * k + n * n_words),
                                2.0 * n * d * k)
@@ -477,17 +508,37 @@ def lsh_case(v, h, label):
     device = sum(kernels.values())
     check(set(launches) == {"lsh_hash_kernel"} and
           0 < launches["lsh_hash_kernel"] <= 1,
-          f"lsh_hash {label}: kernel launches per call {launches}")
-    return {"shape": {"n": n, "d": d, "k": k},
-            "grid": lsh_grid(n, k, sm_count(v.device))._asdict(),
-            "launches_per_call": 1, "profiler_launches_per_call": launches,
-            "bits_flipped": n_flipped,
-            "flip_band": LSH_FLIP_BAND, "max_abs_err": max_flip_proj,
+          f"lsh_hash n={n}: kernel launches per call {launches}")
+    return {"grid": lsh_grid(n, k, sm_count(v.device))._asdict(),
+            "profiler_launches_per_call": launches,
             "kernel_ms": ms, "kernel_device_ms": kernels,
             "device_ms": device, "bound_share": bound_ms / ms,
             "device_bound_share": bound_ms / device if device else None,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def lsh_case(v, h, label):
+    """The kernel against its plain version on rows ``v`` under planes
+    ``h``: bits outside the flip band, one launch a call (the wrapper's
+    count), and ``lsh_times``."""
+    from repro_torch.kernels.lsh_hash import ops
+    from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
+
+    n, d = v.shape
+    k = h.shape[1]
+    before = ops.launch_count()
+    got = ops.lsh_hash(v, h)
+    check(ops.launch_count() == before + 1,
+          f"lsh_hash {label}: {ops.launch_count() - before} launches for "
+          f"one call")
+    # the plain version's zero-padded bits beyond k are already 0
+    want = lsh_hash_ref(v, h)
+    torch.cuda.synchronize()
+    n_flipped, max_flip_proj = lsh_flips(got, want, v, h, label)
+    return {"shape": {"n": n, "d": d, "k": k}, "launches_per_call": 1,
+            "bits_flipped": n_flipped, "flip_band": LSH_FLIP_BAND,
+            "max_abs_err": max_flip_proj, **lsh_times(v, h)}
 
 
 def hash_packed_split(lsh, vectors, reps=20):
@@ -552,44 +603,37 @@ def run_lsh(rag, n_init):
 # phase 4: mips_topk
 # ---------------------------------------------------------------------------
 
-def mips_case(q, db, k, bias, label):
-    from repro_torch.kernels.mips_topk import ops
-    from repro_torch.kernels.mips_topk.ref import mips_topk_ref
-    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
-
-    b = q.shape[0]
-    n, d = db.shape          # d counts the flag columns: the kernel's width
-    q_aug = ops.augment_queries(q, bias).contiguous()
-    vals, idx = ops.flagged_mips_topk(q, db, k, bias)
-    # plain: one more candidate, to see near-ties at the k boundary
-    pv, pi = mips_topk_ref(q_aug, db, min(k + 1, n))
-    torch.cuda.synchronize()
+def near_tie_check(vals, idx, pv, pi, k, label):
+    """The kernel's top-k ``(vals, idx)`` against the plain version's
+    top-(k + 1) ``(pv, pi)``: scores within ``SCORE_TOL``, and ids
+    differing only where a plain neighbour score lies within it (a
+    near-tie two summation orders may swap).  Returns the largest score
+    error and the ids that differ."""
     max_err = float((vals - pv[:, :k]).abs().max())
     check(max_err <= SCORE_TOL,
-          f"mips_topk {label}: score error {max_err} > {SCORE_TOL}")
-    # ids may differ only where a plain neighbour score lies within
-    # the tolerance (a near-tie the two summation orders may swap)
+          f"{label}: score error {max_err} > {SCORE_TOL}")
     near = torch.zeros_like(pv, dtype=torch.bool)
     close = (pv[:, 1:] - pv[:, :-1]).abs() <= SCORE_TOL
     near[:, 1:] |= close
     near[:, :-1] |= close
     bad = (idx != pi[:, :k]) & ~near[:, :k]
     check(not bool(bad.any()),
-          f"mips_topk {label}: {int(bad.sum())} ids differ away from "
-          f"near-ties")
-    id_diffs = int((idx != pi[:, :k]).sum())
-    # batch invariance: each query alone gives the batch's row bitwise
-    for j in range(b):
-        v1, i1 = ops.flagged_mips_topk(q[j:j + 1].contiguous(), db, k,
-                                       bias)
-        check(torch.equal(v1, vals[j:j + 1]) and
-              torch.equal(i1, idx[j:j + 1]),
-              f"mips_topk {label}: b=1 differs from b={b} at row {j}")
-    # kernel, plain and library all start from the same augmented
-    # queries; the flagged wrapper (augmentation included) is its own
-    # number
+          f"{label}: {int(bad.sum())} ids differ away from near-ties")
+    return max_err, int((idx != pi[:, :k]).sum())
+
+
+def mips_times(q_aug, db, k):
+    """The kernel's, the plain version's and ``torch.topk(q @ db.T)``'s
+    times on augmented queries ``q_aug`` over ``db``: event and
+    device-only times (the scan and the merge, both recorded), the
+    grid and the bound."""
+    from repro_torch.kernels.mips_topk import ops
+    from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
+
+    b = q_aug.shape[0]
+    n, d = db.shape          # d counts the flag columns: the kernel's width
     ms = time_ms(lambda: ops.mips_topk(q_aug, db, k))
-    wrapper_ms = time_ms(lambda: ops.flagged_mips_topk(q, db, k, bias))
     plain_ms = time_ms(lambda: mips_topk_ref(q_aug, db, k), reps=5)
     library_ms = time_ms(lambda: torch.topk(q_aug @ db.T, k),
                          reps=5)
@@ -600,27 +644,56 @@ def mips_case(q, db, k, bias, label):
     kernels = kernel_ms(lambda: ops.mips_topk(q_aug, db, k),
                         expect=("mips_scan_kernel", "mips_merge_kernel"))
     check(set(kernels) == {"mips_scan_kernel", "mips_merge_kernel"},
-          f"mips_topk {label}: the profiler kept {sorted(kernels)}")
+          f"mips_topk b={b} n={n}: the profiler kept {sorted(kernels)}")
     kernel_device_ms = sum(kernels.values())
     tile, tile_rows, rows_per_range, n_ranges = ops.mips_scan_grid(
         b, n, torch.cuda.get_device_properties(0).multi_processor_count)
-    return {"shape": {"b": b, "n": n, "d": d, "k": k},
-            "scan_grid": {"query_tile": tile, "tile_rows": tile_rows,
+    return {"scan_grid": {"query_tile": tile, "tile_rows": tile_rows,
                           "rows_per_range": rows_per_range,
                           "n_ranges": n_ranges},
-            "max_abs_err": max_err, "tolerance": SCORE_TOL,
-            "ids_differing_at_near_ties": id_diffs,
-            "batch_invariant": True, "kernel_ms": ms,
+            "kernel_ms": ms,
             "kernel_device_ms": kernels, "device_ms": kernel_device_ms,
             "tflop_per_s": flop / ms / 1e9,
             "device_tflop_per_s": flop / kernel_device_ms / 1e9
             if kernel_device_ms else None,
-            "bound_share": bound_ms / ms,
-            "flagged_wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_share": bound_ms / ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_device_ms": device_ms(
                 lambda: torch.topk(q_aug @ db.T, k)),
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mips_case(q, db, k, bias, label):
+    """``flagged_mips_topk`` against its plain version (near-ties aside),
+    each query alone bitwise its batch row, and ``mips_times`` beside
+    the flagged wrapper's own time (augmentation included)."""
+    from repro_torch.kernels.mips_topk import ops
+    from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+    from repro_torch.kernels.timing import time_ms
+
+    b = q.shape[0]
+    n, d = db.shape
+    q_aug = ops.augment_queries(q, bias).contiguous()
+    vals, idx = ops.flagged_mips_topk(q, db, k, bias)
+    # plain: one more candidate, to see near-ties at the k boundary
+    pv, pi = mips_topk_ref(q_aug, db, min(k + 1, n))
+    torch.cuda.synchronize()
+    max_err, id_diffs = near_tie_check(vals, idx, pv, pi, k,
+                                       f"mips_topk {label}")
+    # batch invariance: each query alone gives the batch's row bitwise
+    for j in range(b):
+        v1, i1 = ops.flagged_mips_topk(q[j:j + 1].contiguous(), db, k,
+                                       bias)
+        check(torch.equal(v1, vals[j:j + 1]) and
+              torch.equal(i1, idx[j:j + 1]),
+              f"mips_topk {label}: b=1 differs from b={b} at row {j}")
+    return {"shape": {"b": b, "n": n, "d": d, "k": k},
+            "max_abs_err": max_err, "tolerance": SCORE_TOL,
+            "ids_differing_at_near_ties": id_diffs,
+            "batch_invariant": True,
+            "flagged_wrapper_ms": time_ms(
+                lambda: ops.flagged_mips_topk(q, db, k, bias)),
+            **mips_times(q_aug, db, k)}
 
 
 def run_mips(rag, questions):
@@ -933,17 +1006,8 @@ def rescore_case(q_aug, db, cand, k, label, planted=()):
           f"launches for one call")
     pv, pi = mips_rescore_ref(q_aug, db, cand, min(k + 1, c))
     torch.cuda.synchronize()
-    max_err = float((vals - pv[:, :k]).abs().max())
-    check(max_err <= SCORE_TOL,
-          f"mips_rescore {label}: score error {max_err} > {SCORE_TOL}")
-    near = torch.zeros_like(pv, dtype=torch.bool)
-    close = (pv[:, 1:] - pv[:, :-1]).abs() <= SCORE_TOL
-    near[:, 1:] |= close
-    near[:, :-1] |= close
-    bad = (idx != pi[:, :k]) & ~near[:, :k]
-    check(not bool(bad.any()),
-          f"mips_rescore {label}: {int(bad.sum())} ids differ away from "
-          f"near-ties")
+    max_err, id_diffs = near_tie_check(vals, idx, pv, pi, k,
+                                       f"mips_rescore {label}")
     # each returned score is bitwise the exact kernel's for its row
     for j in range(b):
         rows = torch.sort(idx[j].long()).values
@@ -991,7 +1055,7 @@ def rescore_case(q_aug, db, cand, k, label, planted=()):
             "grid": rescore_grid(b, c, torch.cuda.get_device_properties(
                 0).multi_processor_count)._asdict(),
             "max_abs_err": max_err, "tolerance": SCORE_TOL,
-            "ids_differing_at_near_ties": int((idx != pi[:, :k]).sum()),
+            "ids_differing_at_near_ties": id_diffs,
             "scores_bitwise_exact_kernel": True,
             "planted_rows_first": list(planted),
             "launches_per_call": 1,
@@ -1112,60 +1176,154 @@ def _bits_key(hits, seqs=True):
 
 
 class KernelInputs:
-    """While active, the inputs that the store's exact scan
-    (``flagged_mips_topk``) and the LSH's hash (``lsh_hash``) hand
-    their kernels: each call counted by shape, and the first call of
-    each shape kept (its tensors copied), so that every shape a path
+    """While active, the inputs that the stores and the LSH hand their
+    kernels: the exact scans (``flagged_mips_topk``, and ``mips_topk``
+    on a shard's slot view), the hashes (``lsh_hash``, of chunks and of
+    the quantized code plane and queries), and the quantized scan's
+    ``hamming_topk`` and ``mips_rescore``: each call counted by shape,
+    and the first call of each shape kept (its tensors copied on the
+    device, with no wait for the host), so that every shape a path
     launched can afterwards be held against the plain version."""
 
     def __init__(self):
         from repro_torch.core import lsh, store
-        self._mods = (store, lsh)
-        self._orig = (store.flagged_mips_topk, lsh.lsh_hash)
-        self.mips, self.lsh = {}, {}     # shape -> [calls, inputs]
+        from repro_torch.kernels.quantized_scan import ops as quant_ops
+        self._slots = ((store, "flagged_mips_topk"), (store, "mips_topk"),
+                       (lsh, "lsh_hash"), (quant_ops, "lsh_hash"),
+                       (quant_ops, "hamming_topk"),
+                       (quant_ops, "mips_rescore"))
+        self._orig = [getattr(m, name) for m, name in self._slots]
+        # shape -> [calls, inputs]; a scan's inputs are (queries, rows,
+        # k, flag bias), the bias None where the queries came augmented
+        self.mips, self.lsh, self.ham, self.rescore = {}, {}, {}, {}
 
-        def scan(q, db, k, bias):
-            key = (q.shape[0], db.shape[0], k, tuple(bias))
-            if key not in self.mips:
-                self.mips[key] = [0, (q.clone(), db.clone(), k, bias)]
-            self.mips[key][0] += 1
-            return self._orig[0](q, db, k, bias)
+        def keep(table, key, inputs):
+            if key not in table:
+                table[key] = [0, tuple(x.clone() if torch.is_tensor(x)
+                                       else x for x in inputs)]
+            table[key][0] += 1
 
-        def hash_(v, h):
-            key = (v.shape[0], h.shape[1])
-            if key not in self.lsh:
-                self.lsh[key] = [0, (v.clone(), h.clone())]
-            self.lsh[key][0] += 1
-            return self._orig[1](v, h)
+        def scan(q, db, k, bias, orig=self._orig[0]):
+            keep(self.mips, (q.shape[0], db.shape[0], k, tuple(bias)),
+                 (q, db, k, tuple(bias)))
+            return orig(q, db, k, bias)
 
-        self._seen = (scan, hash_)
+        def slot_scan(q_aug, db, k, orig=self._orig[1]):
+            # the slot scans' flag bias lives in the queries' last three
+            # columns on the card: kept by shape, as given
+            keep(self.mips, (q_aug.shape[0], db.shape[0], k, None),
+                 (q_aug, db, k, None))
+            return orig(q_aug, db, k)
+
+        def hash_(v, h, orig):
+            keep(self.lsh, (v.shape[0], h.shape[1]), (v, h))
+            return orig(v, h)
+
+        def ham(qc, dbc, c, orig=self._orig[4]):
+            keep(self.ham, (qc.shape[0], dbc.shape[0], qc.shape[1], c),
+                 (qc, dbc, c))
+            return orig(qc, dbc, c)
+
+        def resc(q_aug, db, cand, k, orig=self._orig[5]):
+            keep(self.rescore, (q_aug.shape[0], db.shape[0],
+                                cand.shape[1], k), (q_aug, db, cand, k))
+            return orig(q_aug, db, cand, k)
+
+        self._seen = (scan, slot_scan,
+                      lambda v, h: hash_(v, h, self._orig[2]),
+                      lambda v, h: hash_(v, h, self._orig[3]), ham, resc)
 
     def __enter__(self):
-        self._mods[0].flagged_mips_topk, self._mods[1].lsh_hash = self._seen
+        for (mod, name), fn in zip(self._slots, self._seen):
+            setattr(mod, name, fn)
 
     def __exit__(self, *exc):
-        self._mods[0].flagged_mips_topk, self._mods[1].lsh_hash = self._orig
+        for (mod, name), fn in zip(self._slots, self._orig):
+            setattr(mod, name, fn)
 
     def calls(self, name):
         return sum(c for c, _ in getattr(self, name).values())
 
-    def cases(self, phase):
-        """``mips_case`` and ``lsh_case`` at every shape kept: ``{"mips_topk":
-        [...], "lsh_hash": [...]}``, each case with its calls."""
-        keys = ("shape", "max_abs_err", "kernel_ms", "device_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")
-        out = {"mips_topk": [], "lsh_hash": []}
+    def held(self, phase):
+        """Every shape kept, its kernel against the plain version on the
+        inputs it was given (a scan's queries also one at a time, each
+        bitwise its batch row), untimed: per kernel a list of
+        ``{"shape", "calls", "max_abs_err", ...}``, each with its inputs
+        under ``"inputs"``."""
+        from repro_torch.kernels.hamming_topk import ops as ham_ops
+        from repro_torch.kernels.hamming_topk.ref import hamming_topk_ref
+        from repro_torch.kernels.lsh_hash import ops as lsh_ops
+        from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
+        from repro_torch.kernels.mips_topk import ops as mips_ops
+        from repro_torch.kernels.mips_topk.ref import mips_rescore_ref, \
+            mips_topk_ref
+
+        out = {"mips_topk": [], "lsh_hash": [], "hamming_topk": [],
+               "mips_rescore": []}
         for calls, (q, db, k, bias) in self.mips.values():
-            c = mips_case(q, db, k, bias, f"{phase} b={q.shape[0]} "
-                                          f"bias={bias}")
-            out["mips_topk"].append(dict(
-                {key: c[key] for key in keys + ("scan_grid",)},
-                flag_bias=list(bias), calls=calls))
+            b = q.shape[0]
+            label = f"{phase} mips_topk b={b} n={db.shape[0]}"
+            q_aug = (q if bias is None else
+                     mips_ops.augment_queries(q, bias)).contiguous()
+            vals, idx = mips_ops.mips_topk(q_aug, db, k)
+            pv, pi = mips_topk_ref(q_aug, db, min(k + 1, db.shape[0]))
+            err, diffs = near_tie_check(vals, idx, pv, pi, k, label)
+            for j in range(b):
+                v1, i1 = mips_ops.mips_topk(q_aug[j:j + 1], db, k)
+                check(torch.equal(v1, vals[j:j + 1]) and
+                      torch.equal(i1, idx[j:j + 1]),
+                      f"{label}: b=1 differs from b={b} at row {j}")
+            out["mips_topk"].append({
+                "shape": list(q_aug.shape) + [db.shape[0], k],
+                "flag_bias": None if bias is None else list(bias),
+                "calls": calls, "max_abs_err": err,
+                "ids_differing_at_near_ties": diffs,
+                "batch_invariant": True, "inputs": (q_aug, db, k)})
         for calls, (v, h) in self.lsh.values():
-            c = lsh_case(v, h, f"{phase} n={v.shape[0]}")
-            out["lsh_hash"].append(dict(
-                {key: c[key] for key in keys + ("grid", "bits_flipped")},
-                calls=calls))
+            flips, proj = lsh_flips(lsh_ops.lsh_hash(v, h),
+                                    lsh_hash_ref(v, h), v, h,
+                                    f"{phase} n={v.shape[0]}")
+            out["lsh_hash"].append({
+                "shape": list(v.shape) + [h.shape[1]], "calls": calls,
+                "bits_flipped": flips, "max_abs_err": proj,
+                "inputs": (v, h)})
+        for calls, (qc, dbc, c) in self.ham.values():
+            dist, idx = ham_ops.hamming_topk(qc, dbc, c)
+            pd, pi = hamming_topk_ref(qc, dbc, c)
+            check(torch.equal(dist, pd) and torch.equal(idx, pi),
+                  f"{phase} hamming_topk b={qc.shape[0]} "
+                  f"n={dbc.shape[0]}: differs from the plain version")
+            out["hamming_topk"].append({
+                "shape": list(qc.shape) + [dbc.shape[0], c],
+                "calls": calls, "max_abs_err": 0})
+        for calls, (q_aug, db, cand, k) in self.rescore.values():
+            vals, idx = mips_ops.mips_rescore(q_aug, db, cand, k)
+            pv, pi = mips_rescore_ref(q_aug, db, cand,
+                                      min(k + 1, cand.shape[1]))
+            err, diffs = near_tie_check(
+                vals, idx, pv, pi, k,
+                f"{phase} mips_rescore b={q_aug.shape[0]}")
+            out["mips_rescore"].append({
+                "shape": list(q_aug.shape) + [db.shape[0],
+                                              cand.shape[1], k],
+                "calls": calls, "max_abs_err": err,
+                "ids_differing_at_near_ties": diffs})
+        return out
+
+    def cases(self, phase, timed=False):
+        """``held`` for the JSON line; with ``timed``, each scan and hash
+        shape also timed as the kernels' own phases time theirs
+        (``mips_times``, ``lsh_times``)."""
+        out = {}
+        for name, cases in self.held(phase).items():
+            for case in cases:
+                inputs = case.pop("inputs", None)
+                if timed and name == "mips_topk":
+                    case.update(mips_times(*inputs))
+                elif timed and name == "lsh_hash":
+                    case.update(lsh_times(*inputs))
+            if cases:
+                out[name] = cases
         return out
 
 
@@ -1177,15 +1335,27 @@ class PathLaunches:
     launch (a ``KernelInputs``)."""
 
     def __init__(self, record=False):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.hamming_topk import ops as ham_ops
         from repro_torch.kernels.lsh_hash import ops as lsh_ops
         from repro_torch.kernels.mips_topk import ops as mips_ops
+
+        def attention(pass_, route):
+            return lambda: fa_ops.route_launch_counts()[pass_][route]
+
         self.read = {"lsh_hash": lsh_ops.launch_count,
                      "mips_topk": mips_ops.launch_count,
                      "hamming_topk": ham_ops.launch_count,
                      "mips_rescore": mips_ops.rescore_launch_count,
-                     "merge_sharded_topk": mips_ops.merge_launch_count}
-        for ops in (lsh_ops, mips_ops, ham_ops):
+                     "merge_sharded_topk": mips_ops.merge_launch_count,
+                     # by route: the bf16 tensor-core kernels, and the
+                     # fp32 FMA kernels (suffix _fp32)
+                     **{f"flash_attention_{pass_}{suffix}":
+                        attention(pass_, route)
+                        for pass_ in ("fwd", "bwd")
+                        for suffix, route in (("", "tensor_core_bf16"),
+                                              ("_fp32", "fma_fp32"))}}
+        for ops in (lsh_ops, mips_ops, ham_ops, fa_ops):
             ops.reset_launch_count()
         self.counts = dict.fromkeys(self.read, 0)
         self.inputs = KernelInputs() if record else None
@@ -2304,16 +2474,19 @@ def run_serving_engine(corpus):
     return model, cfg
 
 
-def _path_kernel_cases(path, phase):
-    """Every scan and hash shape that ``path``'s steps launched, held
-    against the plain versions on the inputs they were given; the calls
-    seen by shape must account for every launch counted."""
+def _path_kernel_cases(path, phase, timed=False):
+    """Every kernel shape that ``path``'s steps launched, held against
+    the plain versions on the inputs they were given (``KernelInputs
+    .cases``); the calls seen by shape must account for every launch
+    counted."""
     rec = path.inputs
-    for name, seen in (("mips_topk", "mips"), ("lsh_hash", "lsh")):
+    for name, seen in (("mips_topk", "mips"), ("lsh_hash", "lsh"),
+                       ("hamming_topk", "ham"),
+                       ("mips_rescore", "rescore")):
         check(rec.calls(seen) == path.counts[name],
               f"{phase}: {rec.calls(seen)} {name} calls seen for "
               f"{path.counts[name]} launches")
-    return rec.cases(phase)
+    return rec.cases(phase, timed=timed)
 
 
 def run_serving_rag(rag, corpus, model, cfg):
@@ -2382,7 +2555,7 @@ def run_serving_rag(rag, corpus, model, cfg):
           rep["launches"]["engine"]["generate_batches"] ==
           eng.stats["generate_batches"], "serving_rag: index_report "
                                          "differs from the engine")
-    scans = _path_kernel_cases(path, "serving_rag")
+    scans = _path_kernel_cases(path, "serving_rag", timed=True)
     emit("serving_rag", questions=len(questions),
          context_tokens=[a.n_context_tokens for a in first[:4]],
          first_pass_s=first_s, second_pass_s=second_s,
@@ -2447,7 +2620,7 @@ def run_serving_summarizer(model, cfg):
           f"{b['engine'].stats['generate_batches']} for {segments}")
     check(path.counts["lsh_hash"] > 0,
           "serving_summarizer: lsh_hash never launched")
-    scans = _path_kernel_cases(path, "serving_summarizer")
+    scans = _path_kernel_cases(path, "serving_summarizer", timed=True)
     emit("serving_summarizer", corpus="SyntheticCorpus(n_docs=32, "
          "n_topics=8, seed=0): 24 built, 8 grown",
          reduced={"docs": [5000, 32]}, max_tokens=16,
@@ -2567,6 +2740,327 @@ def run_sharded_deploy():
     torch.cuda.empty_cache()
     emit("sharded_2_22", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6k-6l: the index lifecycle and the live-serving day
+# ---------------------------------------------------------------------------
+
+# the main path's corpus cut from 5000 to 2000 documents: at 5000 the
+# schedule's growth phase queues more documents than the ingest queue's
+# default bound (1024 pending) at any burst count (``_peak_pending_docs``)
+LIVE_DOCS = 2000
+LIVE_BURSTS = (2, 4, 8)     # burst counts walked at 5000 documents
+LIVE_SHARDS = 4             # the day's store (its migration goes to 8)
+LIVE_QUERY_BATCH = 64
+LIFECYCLE_SHARDS = 8        # the quantized store's migration: 4 -> 8
+LIFECYCLE_STOP = 2          # target shards built before the snapshot
+
+
+def _scratch_dir(prefix):
+    """A temporary directory under the checkout's git-ignored build/."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix=prefix, dir=ROOT / "build")
+
+
+class ManagerTimes:
+    """While active, the seconds of every ``LifecycleManager.snapshot``
+    (to its write on disk) and ``restore`` call, and the bytes each
+    snapshot wrote."""
+
+    def __init__(self):
+        from repro_torch.lifecycle.manager import LifecycleManager
+        self.cls = LifecycleManager
+        self._orig = (LifecycleManager.snapshot, LifecycleManager.restore)
+        self.snapshots, self.restores = [], []
+
+    def __enter__(self):
+        snap, rest = self._orig
+
+        def snapshot(mgr, block=False):
+            t0 = time.perf_counter()
+            step = snap(mgr, block=block)
+            mgr.wait()
+            dt = time.perf_counter() - t0
+            files = (mgr.ckpt.path / f"step-{step:08d}").iterdir()
+            self.snapshots.append({"seconds": dt, "bytes": sum(
+                f.stat().st_size for f in files)})
+            return step
+
+        def restore(mgr, graph, **kw):
+            t0 = time.perf_counter()
+            out = rest(mgr, graph, **kw)
+            torch.cuda.synchronize()
+            self.restores.append({"seconds": time.perf_counter() - t0})
+            return out
+
+        self.cls.snapshot, self.cls.restore = snapshot, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.snapshot, self.cls.restore = self._orig
+
+
+def _peak_pending_docs(sched, cfg):
+    """The most documents the live day's ``IngestService`` holds queued,
+    walked without running it: the harness ticks the service once after
+    each event and drains it at a snapshot, a restore and the migration.
+    A burst joins the insert op at the queue's tail; a tick on the head
+    op chunks ``ingest_docs_per_tick`` documents, else embeds
+    ``ingest_embed_batch`` chunks, else commits it; a removal takes one
+    tick."""
+    from repro_torch.data.chunker import chunk_text
+    from repro_torch.data.tokenizer import HashTokenizer
+
+    tok = HashTokenizer()
+    # an insert op: [chunks of each document, documents chunked, chunks
+    # found, chunks embedded]; a removal: None
+    ops, peak = [], 0
+    for ev in (ev for ph in sched.phases for ev in ph.events):
+        if ev[0] == "insert":
+            sizes = [len(chunk_text(d, t, tok, cfg.chunk_tokens))
+                     for d, t in ev[1]]
+            if ops and ops[-1] is not None:
+                ops[-1][0] += sizes
+            else:
+                ops.append([sizes, 0, 0, 0])
+        elif ev[0] == "remove":
+            ops.append(None)
+        elif ev[0] in ("snapshot", "restore", "migrate"):
+            ops.clear()
+        peak = max(peak, sum(len(op[0]) for op in ops if op))
+        op = ops[0] if ops else None
+        if op is None:
+            ops[:1] = []
+        elif op[1] < len(op[0]):
+            take = op[0][op[1]:op[1] + cfg.ingest_docs_per_tick]
+            op[1] += len(take)
+            op[2] += sum(take)
+        elif op[3] < op[2]:
+            op[3] += min(cfg.ingest_embed_batch, op[2] - op[3])
+        else:
+            ops.pop(0)
+    return peak
+
+
+def _search_bits(store, q, k, seqs=True):
+    return [_bits_key(h, seqs) for filt in (None, "leaf", "summary")
+            for h in store.search_batch(q, k, filt)]
+
+
+def run_lifecycle(corpus, rag_q, questions):
+    """The quantized main-path index that ``sharded_path`` resharded to
+    4: a policy-triggered migration 4 -> 8 stopped by a
+    ``LifecycleManager`` snapshot after 2 of its 8 target shards,
+    restored twice (resumed from the staged shards, and replayed), each
+    finished by ``refresh()`` turns; then a tombstone-triggered
+    same-width replay.  Every hit, score bits included, equal to the
+    unbroken migration's and a fresh 8-shard build's."""
+    from repro_torch.core.store import ShardedVectorStore
+    from repro_torch.kernels.hamming_topk import ops as ham_ops
+    from repro_torch.lifecycle import LifecycleManager, LifecyclePolicy
+
+    t0 = _phase_start()
+    store = rag_q.store
+    check(isinstance(store, ShardedVectorStore) and store.n_shards == 4
+          and store.quantized, "lifecycle: not the 4-shard quantized store")
+    cfg, k = rag_q.cfg, rag_q.cfg.top_k
+    q = np.asarray(rag_q.embedder.encode(questions), np.float32)
+    # the scan settings, passed explicitly: a snapshot holds no "quant"
+    # entry, so a restore is exact unless asked (as in the JAX package)
+    scan_kw = dict(quantized=True, coarse_mult=cfg.coarse_mult,
+                   scan_bits=cfg.scan_bits, scan_seed=cfg.seed)
+    policy = LifecyclePolicy.from_config(replace(
+        cfg, reshard_skew_threshold=1e-6, reshard_min_rows=1,
+        reshard_max_shards=LIFECYCLE_SHARDS))
+    path = PathLaunches(record=True)
+    old = _search_bits(store, q, k)
+    old_epoch = store.epoch
+    with _scratch_dir("lifecycle_") as snap_dir, ManagerTimes() as times:
+        mgr = LifecycleManager(store, snap_dir, policy=policy)
+        path.drive(store.refresh)              # the policy stages 4 -> 8
+        mig = store.migration
+        check(mig is not None and mig.plan.n_to == LIFECYCLE_SHARDS,
+              f"lifecycle: the policy staged {mig and mig.describe()}")
+        while len(store.migration.built) < LIFECYCLE_STOP:
+            path.drive(store.refresh)
+        check(_search_bits(store, q, k) == old and
+              store.epoch == old_epoch,
+              "lifecycle: mid-migration hits left the old epoch")
+        mgr.snapshot(block=True)
+        restored = {}
+        for resume in (True, False):
+            st = path.drive(lambda: mgr.restore(
+                rag_q.graph, device="cuda", resume=resume, **scan_kw))
+            check(st.quantized and st.migration is not None and
+                  len(st.migration.built) ==
+                  (LIFECYCLE_STOP if resume else 0),
+                  f"lifecycle: restore(resume={resume}) staged "
+                  f"{st.migration and st.migration.describe()}")
+            restored["resumed" if resume else "replayed"] = st
+    stores = {"unbroken": store, **restored}
+    turns, hits = {}, {}
+    for name, st in stores.items():
+        turns[name] = 0
+        while st.migration is not None:
+            path.drive(st.refresh)
+            turns[name] += 1
+        check(st.epoch == old_epoch + 1 and
+              st.n_shards == LIFECYCLE_SHARDS,
+              f"lifecycle: {name} ended at epoch {st.epoch}, "
+              f"{st.n_shards} shards")
+        hits[name] = path.drive(lambda: _search_bits(st, q, k))
+    left = LIFECYCLE_SHARDS - LIFECYCLE_STOP
+    check(turns == {"unbroken": left, "resumed": left,
+                    "replayed": LIFECYCLE_SHARDS},
+          f"lifecycle: refresh turns {turns}")
+    fresh = ShardedVectorStore(rag_q.graph, n_shards=LIFECYCLE_SHARDS,
+                               device="cuda", **scan_kw)
+    fresh.rebuild()
+    for name in ("resumed", "replayed"):
+        check(hits[name] == hits["unbroken"],
+              f"lifecycle: {name} hits differ from the unbroken "
+              f"migration's")
+    check(_search_bits(store, q, k, seqs=False) ==
+          _search_bits(fresh, q, k, seqs=False),
+          "lifecycle: the migration's hits differ from a fresh 8-shard "
+          "build's")
+    del restored, stores
+    # the tombstone trigger: the last growth round's documents removed
+    # with per-shard compaction off, then replayed at the same width
+    store.attach_lifecycle(LifecyclePolicy.from_config(replace(
+        cfg, reshard_tombstone_threshold=1e-6, reshard_min_rows=1)))
+    store._compact_threshold = 1.0
+    _, rounds = corpus.growth_rounds(0.5, 5)
+    path.drive(lambda: rag_q.remove_docs([doc for doc, _ in rounds[-1]]))
+    epoch = store.epoch
+    path.drive(store.refresh)      # the tombstones, then the trigger
+    dead = sum(sh.n_dead for sh in store._shards)
+    tomb_turns = 0
+    check(store.migration is not None and
+          store.migration.plan.n_to == LIFECYCLE_SHARDS,
+          f"lifecycle: the tombstone trigger staged "
+          f"{store.migration and store.migration.describe()}")
+    while store.epoch == epoch:
+        path.drive(store.refresh)
+        tomb_turns += 1
+    store.attach_lifecycle(None)
+    check(sum(sh.n_dead for sh in store._shards) == 0 and
+          store.n_shards == LIFECYCLE_SHARDS,
+          "lifecycle: the tombstone replay left dead rows")
+    fresh = ShardedVectorStore(rag_q.graph, n_shards=LIFECYCLE_SHARDS,
+                               device="cuda", **scan_kw)
+    fresh.rebuild()
+    check(path.drive(lambda: _search_bits(store, q, k, seqs=False)) ==
+          _search_bits(fresh, q, k, seqs=False),
+          "lifecycle: the tombstone replay's hits differ from a fresh "
+          "build's")
+    del fresh
+    launches = dict(path.counts)
+    for name in ("lsh_hash", "hamming_topk", "mips_rescore"):
+        check(launches[name] > 0,
+              f"{name} never launched on the lifecycle path")
+    check(ham_ops.route_launch_counts()["count"] == 0,
+          "lifecycle: hamming_topk left the list route")
+    cases = _path_kernel_cases(path, "lifecycle")
+    emit("lifecycle", rows=store.size, shards=[4, LIFECYCLE_SHARDS],
+         plan=mig.plan.to_dict(), stopped_after=LIFECYCLE_STOP,
+         refresh_turns=turns, epochs=[old_epoch, old_epoch + 1],
+         snapshots=times.snapshots, restores=times.restores,
+         hits_bitwise_unbroken=True, hits_bitwise_fresh_build=True,
+         tombstone_replay={"dead_rows": dead, "turns": tomb_turns,
+                           "epoch": store.epoch},
+         store_stats={key: getattr(store.stats, key) for key in (
+             "reshards", "reshard_steps", "rows_tombstoned",
+             "compactions")},
+         launches=launches, kernel_cases=cases, **_phase_end(t0))
+    return launches
+
+
+def run_live_day(corpus):
+    """``LiveHarness`` on the paper's defaults at 4 shards with the query
+    cache, over the main path's corpus: the seeded schedule's ingest
+    bursts, removals, Zipf query batches, a snapshot and restore
+    mid-stream and one policy-triggered migration to 8 shards, gated
+    inside ``run()`` (old-epoch availability, completion, bitwise parity
+    with the synchronous replay of ``committed_ops``)."""
+    from repro_torch.configs.erarag import ERARAG_DEFAULT
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+    from repro_torch.serving.live_harness import LiveHarness, \
+        make_schedule
+
+    t0 = _phase_start()
+    cfg = replace(ERARAG_DEFAULT, index_shards=LIVE_SHARDS,
+                  query_cache=True)
+    # why the corpus is cut: at the main path's 5000 documents the queue
+    # would overflow its bound whatever the number of growth bursts
+    peak_at_main = {bursts: _peak_pending_docs(make_schedule(
+        corpus, seed=0, query_batch=LIVE_QUERY_BATCH, queries_per_phase=4,
+        bursts=bursts), cfg) for bursts in LIVE_BURSTS}
+    check(min(peak_at_main.values()) > cfg.ingest_max_pending_docs,
+          f"live_day: {len(corpus.docs)} documents queue at most "
+          f"{peak_at_main} under the bound; no cut is needed")
+    corpus = SyntheticCorpus.generate(n_docs=LIVE_DOCS, n_topics=64,
+                                      seed=0)
+    sched = make_schedule(corpus, seed=0, query_batch=LIVE_QUERY_BATCH,
+                          queries_per_phase=4)
+    peak = _peak_pending_docs(sched, cfg)
+    check(peak <= cfg.ingest_max_pending_docs,
+          f"live_day: {peak} documents queued over the bound")
+    path = PathLaunches(record=True)
+    with _scratch_dir("live_day_") as snap_dir, ManagerTimes() as times:
+        harness = LiveHarness(cfg, lambda: HashingEmbedder(dim=256), sched,
+                              snap_dir, compact_threshold=0.15,
+                              device="cuda")
+        report = path.drive(harness.run)
+    mig = report["migration"]
+    counters = report["store_counters"]
+    check(report["parity"]["bitwise"] and mig["availability"] == 1.0 and
+          mig["completed"] and mig["post_matches_ref"],
+          f"live_day: gates {report['parity']}, {mig}")
+    check((mig["old_shards"], mig["new_shards"]) ==
+          (LIVE_SHARDS, 2 * LIVE_SHARDS) and
+          mig["new_epoch"] == mig["old_epoch"] + 1,
+          f"live_day: migration {mig}")
+    check(counters["compactions"] >= 1 and
+          counters["reshard_steps"] == 2 * LIVE_SHARDS,
+          f"live_day: store counters {counters}")
+    check(len(times.snapshots) == 1 and len(times.restores) == 1,
+          f"live_day: {times.snapshots}, {times.restores}")
+    check(report["service"]["max_queue_depth"] == peak,
+          f"live_day: the queue held {report['service']['max_queue_depth']}"
+          f" documents at most, the walk says {peak}")
+    launches = dict(path.counts)
+    for name in ("lsh_hash", "mips_topk", "merge_sharded_topk"):
+        check(launches[name] > 0,
+              f"{name} never launched on the live day")
+    check(launches["hamming_topk"] == launches["mips_rescore"] == 0,
+          "live_day: the exact store ran the quantized scan")
+    cases = _path_kernel_cases(path, "live_day")
+    emit("live_day", reduced={
+        "reader": "extractive (the LM reader runs in serving_rag; at "
+                  "1.2-1.5 answers/s it would stretch the day to tens "
+                  "of minutes)",
+        "n_docs": [5000, LIVE_DOCS],
+        "why_n_docs": "at 5000 the growth phase queues more documents "
+                      "than the ingest queue's bound at any burst count",
+        "peak_pending_docs_at_5000_by_bursts": peak_at_main,
+        "peak_pending_docs": peak,
+        "max_pending_docs": cfg.ingest_max_pending_docs},
+         docs=len(corpus.docs), base_docs=len(sched.base_docs),
+         query_batch=LIVE_QUERY_BATCH, compact_threshold=0.15,
+         phases=[{key: ph.get(key) for key in (
+             "name", "events", "query_batches", "answers", "p50_ms",
+             "p99_ms", "obs")} for ph in report["phases"]],
+         migration=mig, parity=report["parity"], store_counters=counters,
+         service=report["service"], final_epoch=report["final_epoch"],
+         final_shards=report["final_shards"],
+         index_size=report["index_size"], snapshot=times.snapshots[0],
+         restore=times.restores[0], launches=launches,
+         kernel_cases=cases, **_phase_end(t0))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2902,6 +3396,88 @@ def run_train_reference():
     return {f"flash_attention_{p}": routes[p]["fma_fp32"] for p in routes}
 
 
+RESUME_STEPS, RESUME_STOP = 6, 3     # the run, and where it is stopped
+
+
+def run_train_resume():
+    """llama3-8b at ``reduced()`` in bf16 through ``run_training``: 6
+    steps unbroken against 3 steps with ``ckpt_dir`` and a resume to 6
+    in a fresh model; losses, every weight and both AdamW moments (the
+    runs' final checkpoints) equal bitwise, the resume on the bf16
+    attention kernels."""
+    import copy
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs.llama3_8b import llama3_8b
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    t0 = _phase_start()
+    cfg = llama3_8b().reduced()
+    b, l, n_mb = 4, 64, 2
+    make = synthetic_lm_batches(cfg.vocab_size, b, l, seed=2)
+    init = init_params(cfg, torch.Generator().manual_seed(0))
+
+    def train(ckpt_dir, max_steps, every=100, resume=False):
+        loop = LoopConfig(max_steps=max_steps, ckpt_every=every,
+                          ckpt_dir=ckpt_dir, base_lr=1e-2,
+                          n_microbatches=n_mb, log_every=0)
+        return run_training(lambda m, bt: loss_fn(m, bt, cfg),
+                            copy.deepcopy(init).to("cuda"), make, loop,
+                            resume=resume)
+
+    with _scratch_dir("train_resume_") as d:
+        full = train(f"{d}/full", RESUME_STEPS)
+        first = train(f"{d}/cut", RESUME_STOP, every=RESUME_STOP)
+        path = PathLaunches()        # every kernel's count set to 0
+        fa_ref.reset_call_count()
+        t_resume = time.perf_counter()
+        resumed = path.drive(lambda: train(f"{d}/cut", RESUME_STEPS,
+                                           resume=True))
+        resume_s = time.perf_counter() - t_resume
+        launches = dict(path.counts, attention_ref=fa_ref.call_count())
+        totals = {"fwd": fa_ops.launch_count(),
+                  "bwd": fa_ops.bwd_launch_count()}
+        _, want, want_extra = load_checkpoint(f"{d}/full")
+        _, got, got_extra = load_checkpoint(f"{d}/cut")
+    check(resumed.final_step == RESUME_STEPS and
+          len(resumed.losses) == RESUME_STEPS - RESUME_STOP,
+          f"train_resume: resumed to {resumed.final_step}")
+    check(first.losses + resumed.losses == full.losses,
+          f"train_resume: losses {first.losses} + {resumed.losses} "
+          f"against {full.losses}")
+    check(want_extra == got_extra == {"step": RESUME_STEPS} and
+          list(got) == list(want),
+          f"train_resume: checkpoints {got_extra}, {want_extra}")
+    differ = [key for key in want if not np.array_equal(got[key],
+                                                        want[key])]
+    check(not differ, f"train_resume: {differ[:5]} differ")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] > 0,
+              f"{name} never launched on the resumed run")
+    check(launches["attention_ref"] == 0,
+          "train_resume: the plain attention ran on the card")
+    for pass_ in ("fwd", "bwd"):
+        check(launches[f"flash_attention_{pass_}"] == totals[pass_] and
+              launches[f"flash_attention_{pass_}_fp32"] == 0,
+              f"train_resume: {pass_} launches by route {launches}, "
+              f"{totals[pass_]} in all")
+    # the resumed run's attention shape against the plain version
+    case = attention_case(b // n_mb, cfg.n_heads, cfg.n_kv_heads, l, l,
+                          cfg.d_head, True, torch.bfloat16, seed=31)
+    n_moments = sum(1 for key in want if key.startswith("['opt']/.mu"))
+    emit("train_resume", model="llama3-8b reduced", compute_dtype="bfloat16",
+         batch=b, seq_len=l, n_microbatches=n_mb, steps=RESUME_STEPS,
+         stopped_at=RESUME_STOP, losses=full.losses,
+         resumed_losses=resumed.losses, resume_s=resume_s,
+         checkpoint_arrays=len(want), moments_per_kind=n_moments,
+         bitwise_equal=True, launches=launches, attention_case=case, **_phase_end(t0))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2937,6 +3513,7 @@ def main() -> int:
         rag_q, questions)
     sh_launches, sh_q_launches = run_sharded_path(corpus, rag, rag_q,
                                                   questions)
+    life_launches = run_lifecycle(corpus, rag_q, questions)
     del rag_q
     base_path = PathLaunches()
     b1_scan = run_baselines(corpus, base_path)
@@ -2951,6 +3528,7 @@ def main() -> int:
                                                        PathLaunches())
     run_index_report(pipe)
     del pipe
+    live_launches = run_live_day(corpus)
     torch.cuda.empty_cache()
     run_serving_reference()
     model, lm_cfg = run_serving_engine(corpus)
@@ -2966,6 +3544,7 @@ def main() -> int:
     fa_main = run_flash_attention()
     train_launches = run_train_path()
     fp32_launches = run_train_reference()
+    resume_launches = run_train_resume()
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -2982,6 +3561,13 @@ def main() -> int:
                     "composition", "composition_ms",
                     "composition_device_ms")
 
+    def later(name):
+        """The launches of the lifecycle, live-day and train_resume
+        phases, each read by its ``PathLaunches``."""
+        return {"live": {"launches": live_launches[name]},
+                "lifecycle": {"launches": life_launches[name]},
+                "train_resume": {"launches": resume_launches[name]}}
+
     def entry(name, replaces, main_case, deploy_case, n_launches,
               source=None, extra=(), **more):
         main = {k: main_case[k] for k in keys + extra}
@@ -2990,7 +3576,7 @@ def main() -> int:
                 "replaces": replaces, "launches": n_launches,
                 "ms": main.pop("kernel_ms"), **main,
                 "at_2_22": {k: deploy_case[k] for k in keys + extra},
-                **more}
+                **later(name), **more}
 
     def fa_entry(case, n_launches, pass_, suffix=""):
         t = case["timing"]
@@ -3008,7 +3594,8 @@ def main() -> int:
                 "library_ms": t[f"{pass_}_library_ms"],
                 "tflop_per_s": t[f"{pass_}_tflop_per_s"],
                 "bound_share": t[f"{pass_}_bound_share"],
-                "shape": case["shape"]}
+                "shape": case["shape"],
+                **later(f"flash_attention_{pass_}{suffix}")}
 
     print(json.dumps({"kernels": [
         # launches: the exact main path's; the quantized path's beside

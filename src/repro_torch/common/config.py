@@ -3,10 +3,7 @@
 ``EraRAGConfig`` takes every field name of the JAX package's dataclass,
 because snapshots carry the config as a plain dict (``EraGraph.
 state_dict()["cfg"]``) and ``EraRAG.from_state`` rebuilds it with
-``EraRAGConfig(**cfg)``.  Fields whose subsystem is not ported yet
-(the lifecycle policy's ``reshard_*`` thresholds) are accepted and
-validated identically; the components that would read them raise
-``NotImplementedError`` when a non-default value asks for them.
+``EraRAGConfig(**cfg)``, validated identically.
 
 ``ShapeSpec``, ``ArchConfig``, ``MoEConfig`` and ``LMConfig`` carry
 every field of the JAX package's classes, so a config converts field by

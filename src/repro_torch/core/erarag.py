@@ -23,9 +23,9 @@ explicit ``EraRAG.reshard``.  The sharded store's collective query
 (``collective_query``) needs several devices and a process group, so
 the per-shard loop serves every batch, as in the JAX package without a
 mesh.  ``query_cache=True`` puts the epoch-invalidated
-``SemanticQueryCache`` in front of retrieval.  Live resharding by a
-lifecycle policy (the ``reshard_*`` thresholds) raises
-``NotImplementedError``.
+``SemanticQueryCache`` in front of retrieval.  The ``reshard_*``
+thresholds attach a ``LifecyclePolicy`` to the store, whose explicit
+``refresh()`` then starts and advances live reshard migrations.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.common.config import EraRAGConfig, not_ported
+from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.graph import EraGraph, UpdateReport
 from repro_torch.core.query_cache import SemanticQueryCache
 from repro_torch.core.retrieve import BridgeFn, Retrieval, \
@@ -49,14 +49,6 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.obs import Observability
 
 
-def _check_served(cfg: EraRAGConfig) -> None:
-    """Raise for the config options whose subsystem is not ported."""
-    if cfg.reshard_skew_threshold > 0 \
-            or cfg.reshard_tombstone_threshold > 0:
-        raise not_ported("live resharding (reshard_* thresholds)",
-                         "6. Lifecycle and checkpoint")
-
-
 def _quant_kw(cfg: EraRAGConfig) -> dict:
     return {"quantized": cfg.quantized_scan,
             "coarse_mult": cfg.coarse_mult,
@@ -67,7 +59,6 @@ def make_store(graph, cfg: EraRAGConfig, device=None) -> AnyStore:
     """cfg.index_shards: 1 -> the single-buffer store; > 1 -> that many
     hash-routed shards; 0 -> one shard per device of the store's device
     type (``torch.cuda.device_count()`` on the card, 1 on the CPU)."""
-    _check_served(cfg)
     if cfg.index_shards == 1:
         return VectorStore(graph, device=device, **_quant_kw(cfg))
     return ShardedVectorStore(
@@ -78,7 +69,6 @@ def make_store(graph, cfg: EraRAGConfig, device=None) -> AnyStore:
 class EraRAG:
     def __init__(self, cfg: EraRAGConfig, embedder,
                  summarizer: Optional[Summarizer] = None, device=None):
-        _check_served(cfg)
         self.cfg = cfg
         self.embedder = embedder
         self.device = resolve_device(device)
@@ -91,6 +81,7 @@ class EraRAG:
         self.graph.tracer = self.obs.tracer
         self.store = make_store(self.graph, cfg, self.device)
         self.store.tracer = self.obs.tracer
+        self._attach_lifecycle()
         self.reports: List[UpdateReport] = []
         # batched-retrieval-round counter: every batched store sweep
         # (however many questions it serves) counts ONE round
@@ -104,6 +95,15 @@ class EraRAG:
             self.query_cache = SemanticQueryCache(
                 capacity=cfg.query_cache_size,
                 threshold=cfg.query_cache_threshold)
+
+    def _attach_lifecycle(self) -> None:
+        """Attach the config's reshard policy (if any threshold is on)
+        so the store's refresh loop schedules and advances live reshard
+        migrations on its own."""
+        from repro_torch.lifecycle.policy import LifecyclePolicy
+        policy = LifecyclePolicy.from_config(self.cfg)
+        if policy is not None:
+            self.store.attach_lifecycle(policy)
 
     def reshard(self, n_shards: int) -> AnyStore:
         """Change the index shard count NOW (a synchronous epoch-swapped
@@ -123,6 +123,7 @@ class EraRAG:
         self.store.tracer = self.obs.tracer  # store may be a NEW object
         self.cfg = dataclasses.replace(self.cfg,
                                        index_shards=int(n_shards))
+        self._attach_lifecycle()
         if self.query_cache is not None:
             # a flat<->sharded reshard may swap in a NEW store object
             # whose epoch counter restarts, so the token could collide
@@ -264,4 +265,5 @@ class EraRAG:
         else:
             obj.store = make_store(obj.graph, cfg, obj.device)
         obj.store.tracer = obj.obs.tracer
+        obj._attach_lifecycle()
         return obj

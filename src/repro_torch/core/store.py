@@ -76,22 +76,25 @@ scan's.  The plane keeps the JAX store's invariants:
 - compaction gathers the codes by the same ``keep`` index as the rows
   and commits both together.
 
-Not served yet: the collective query over a process group (the loop
-serves every batch, as the JAX package's does without a mesh) and
-live resharding by a lifecycle policy, which raises
-``NotImplementedError``.
+Live resharding: ``attach_lifecycle`` hands the sharded store a
+``LifecyclePolicy``; every explicit ``refresh()`` then commits the
+staged compaction, builds one target shard of an in-flight migration
+(or installs it), replays the delta log, and consults the policy, in
+that order.  Not served yet: the collective query over a process group
+(the loop serves every batch, as the JAX package's does without a
+mesh).
 """
 from __future__ import annotations
 
 import functools
 import hashlib
+import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.common.config import not_ported
 from repro_torch.common.sharding import local_shard_count, \
     padded_slot_count, shard_placements
 from repro_torch.kernels.common import resolve_device
@@ -102,6 +105,8 @@ from repro_torch.kernels.quantized_scan.ops import FLAG_SET, QuantSpec, \
     encode_rows, hyperplanes, prepare_queries, quantized_flagged_topk, \
     two_stage_topk
 from repro_torch.obs.trace import NULL_TRACER
+
+logger = logging.getLogger(__name__)
 
 # trailing indicator columns of the device buffer
 N_FLAGS = 3
@@ -693,11 +698,13 @@ class _BaseStore:
         self._pending: Optional[Tuple[int, np.ndarray, _Compacted]] = \
             None
         self._compact_rr = 0
-        # committed reshard migrations bump the epoch; an explicit
-        # reshard clears `_migration` (no policy ever starts one here)
+        # index lifecycle: committed reshard migrations bump the epoch;
+        # `_migration` is the in-flight staged epoch, built one target
+        # shard per refresh(); `_policy` is the pluggable trigger that
+        # refresh() consults (attach_lifecycle)
         self.epoch = 0
         self._migration = None
-        self._policy = None
+        self._policy = None         # Optional[LifecyclePolicy]
         self._router = _Router()    # per-instance routing LRU+counters
         self.query_hits = np.zeros(1, np.int64)
 
@@ -779,7 +786,8 @@ class _BaseStore:
 
     def _full_rebuild(self) -> None:
         self._pending = None   # stale double buffer: drop, never swap
-        self._migration = None
+        self._migration = None  # staged epoch rows are stale too: abort
+        # the migration (the policy re-triggers if still warranted)
         self._group.reset()
         for sh in self._shards:
             sh.reset()
@@ -811,15 +819,60 @@ class _BaseStore:
         keep, compacted = self._shards[pick].schedule_compact()
         self._pending = (pick, keep, compacted)
 
+    def _advance_migration(self) -> None:
+        """Lifecycle turn (explicit ``refresh()`` only): build at most
+        ONE staged target shard of an in-flight reshard migration, and
+        once every target shard is built, install the new epoch with
+        one atomic swap.  The install rewinds ``_version`` to the
+        migration's plan version, so the replay that follows brings the
+        new epoch up to date through the graph's delta-log tail."""
+        mig = self._migration
+        if mig is None:
+            return
+        if not mig.done:
+            desc = mig.describe()
+            with self.tracer.span("reshard_step", epoch=self.epoch,
+                                  built=desc["built"],
+                                  total=desc["total"]):
+                mig.step()
+            self._store_stats.reshard_steps += 1
+        if mig.done:
+            self._migration = None
+            with self.tracer.span("reshard_install",
+                                  old_epoch=self.epoch,
+                                  new_epoch=self.epoch + 1):
+                mig.install()
+
+    def _maybe_start_reshard(self) -> None:
+        """Consult the attached lifecycle policy for a reshard plan; at
+        most one migration is in flight at a time."""
+        if self._policy is None or self._migration is not None:
+            return
+        plan = self._policy.decide(self)
+        if plan is None:
+            return
+        from repro_torch.lifecycle.reshard import ShardMigration
+        logger.info("lifecycle: starting reshard %d -> %d (%s)",
+                    plan.n_from, plan.n_to, plan.reason)
+        self._migration = ShardMigration(self, plan)
+
     def _refresh(self, force_commit: bool = False) -> None:
         g = self._graph
         if self._version == g.version and not force_commit:
             # version-synced queries take this hot path: they never
-            # commit (or depend on) a staged compaction
+            # commit (or depend on) a staged compaction or advance a
+            # migration, so a query issued mid-migration always serves
+            # the OLD epoch unchanged
             return
         # a replay turn swaps in the previously staged compaction
         # FIRST: the delta replay below must see the committed layout
         self._commit_pending_compaction()
+        if force_commit:
+            # one lifecycle turn per explicit refresh: build one staged
+            # target shard, or commit the finished epoch swap (which
+            # rewinds _version to the plan version: the replay below
+            # then applies the delta tail to the new epoch)
+            self._advance_migration()
         if self._version != g.version:
             self._store_stats.refreshes += 1
             deltas = g.deltas_since(self._version) \
@@ -831,6 +884,8 @@ class _BaseStore:
                     self._apply_delta(added, removed)
             self._schedule_threshold_compaction()
             self._version = g.version
+        if force_commit:
+            self._maybe_start_reshard()
 
     def _valid_count(self, layer_filter: Optional[str]) -> int:
         return sum(sh.valid_count(layer_filter)
@@ -841,8 +896,9 @@ class _BaseStore:
     # ------------------------------------------------------------------
     def refresh(self) -> None:
         """Bring the index up to the graph's version (delta replay,
-        routed to owning shards only); commits a pending compaction and
-        schedules at most one new one."""
+        routed to owning shards only); commits a pending compaction,
+        schedules at most one new one, and takes one lifecycle turn
+        (one migration step or install, then the policy's consult)."""
         self._refresh(force_commit=True)
 
     def rebuild(self) -> None:
@@ -873,9 +929,11 @@ class _BaseStore:
         return (self.epoch, self._graph.version)
 
     def attach_lifecycle(self, policy) -> None:
-        if policy is not None:
-            raise not_ported("live resharding (a lifecycle policy)",
-                             "6. Lifecycle and checkpoint")
+        """Attach a ``LifecyclePolicy`` (None detaches): every explicit
+        ``refresh()`` consults it and may start (then advance, one
+        target shard per call) an epoch-swapped reshard migration.  The
+        flat store never migrates in place: its policy stands down."""
+        self._policy = policy
 
     def routing_cache_info(self) -> Dict[str, int]:
         """This store's private routing-LRU counters (never another
@@ -884,8 +942,8 @@ class _BaseStore:
 
     @property
     def migration(self):
-        """The in-flight policy migration: never one here (an explicit
-        ``Resharder.begin`` hands its migration to the caller)."""
+        """The in-flight ``ShardMigration`` (the staged epoch being
+        built off the query path by ``refresh()``), or None."""
         return self._migration
 
     def _quant_state(self) -> dict:

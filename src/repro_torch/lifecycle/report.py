@@ -2,15 +2,15 @@
 
 ``ShardLoadReport.from_store`` reads a store's counters PASSIVELY — no
 refresh, no device sync — so it is safe to build from anywhere,
-including inside ``refresh()`` itself.  It aggregates, per shard: live rows, tombstones,
+including inside ``refresh()`` itself (that is where the lifecycle
+policy consults it).  It aggregates, per shard: live rows, tombstones,
 capacity, staged rows, committed compactions, and the per-shard query
 HIT counters the store accumulates on every ``search_batch`` merge —
 row-count skew says where the *data* piled up, hit skew says where the
 *traffic* lands, and a resharding decision needs both.  The report
 also carries the store's private routing-LRU counters (per instance —
 they never include another store's traffic) and the state of any
-in-flight migration (always None here: no lifecycle policy starts one,
-and an explicit ``Resharder.begin`` hands its migration to the caller).
+in-flight migration.
 
 A shard's ``device`` is its placement on the card (``cuda:0``) or the
 CPU; the flat store has no placements and reports None.

@@ -22,11 +22,12 @@ Because the replay preserves each row's float content and relative
 global-sequence order, the resharded store's search results are
 bitwise identical to a store freshly built at the target shard count.
 
-``Resharder`` runs a whole migration at once (``EraRAG.reshard``) and is the
-snapshot replayer (``from_state`` with a disagreeing shard count).  The
-store's lifecycle policy, which would start migrations from
-``refresh()``, is not ported: a store never has one, so
-``_policy_suspended`` guards an attribute that is always None.
+A store's lifecycle policy (``attach_lifecycle``) starts migrations
+from ``refresh()``, which then drives one ``step()`` per call and the
+install.  ``Resharder`` runs a whole migration at once
+(``EraRAG.reshard``), pre-empting any policy migration in flight, and
+is the snapshot replayer (``from_state`` with a disagreeing shard
+count).
 """
 from __future__ import annotations
 
@@ -126,10 +127,16 @@ class ShardMigration:
     staging store; ``step()`` builds ONE target shard; once every shard
     is built, ``install()`` performs the atomic epoch swap into the
     source store, which serves queries from its old epoch, untouched,
-    for the whole lifetime of this object."""
+    for the whole lifetime of this object.
+
+    ``built_states`` resumes a half-finished migration from persisted
+    staged shards (``LifecycleManager.restore``): the target shards
+    already built load from the snapshot, the rest replay from the
+    source."""
 
     def __init__(self, store: AnyStore, plan: ReshardPlan, *,
-                 store_kw: Optional[dict] = None):
+                 store_kw: Optional[dict] = None,
+                 built_states: Optional[List[dict]] = None):
         self.store = store
         self.plan = plan
         self.rows = store.export_rows()
@@ -139,6 +146,9 @@ class ShardMigration:
                                          plan.n_to)
         self.staging = self._make_staging(store_kw or {})
         self.built: List[int] = []
+        for sh_state in (built_states or []):
+            self.staging._shards[len(self.built)].load_state(sh_state)
+            self.built.append(len(self.built))
         if self.done:
             self._finalize()
 
@@ -153,6 +163,11 @@ class ShardMigration:
     @property
     def done(self) -> bool:
         return len(self.built) >= self.staging.n_shards
+
+    def describe(self) -> dict:
+        return {"plan": self.plan.to_dict(),
+                "built": len(self.built),
+                "total": self.staging.n_shards}
 
     def step(self) -> bool:
         """Build the next target shard from the snapshot; returns True
@@ -187,8 +202,8 @@ class ShardMigration:
         self.store.install_epoch(self.staging)
 
     def state_dict(self) -> dict:
-        """Migration progress: the plan plus the staged target shards
-        built so far."""
+        """Persistable migration progress: the plan plus the staged
+        target shards built so far (the resume payload)."""
         return {"plan": self.plan.to_dict(),
                 "built": [self.staging._shards[s].state_dict()
                           for s in self.built]}
@@ -227,8 +242,12 @@ class Resharder:
               reason: str = "") -> ShardMigration:
         """Start (but do not install) a migration: the store keeps
         serving its old epoch; drive with ``step()`` and commit with
-        ``install()``.  An explicit reshard preempts any migration in
-        flight."""
+        ``install()``, or hand it to the store's refresh loop.
+
+        An explicit reshard pre-empts a policy-scheduled migration: one
+        already in flight is dropped (the old epoch was never touched),
+        and the policy is suspended for the ``plan()`` refresh so that
+        it cannot schedule a competing one."""
         store._migration = None
         with _policy_suspended(store):
             plan = self.plan(store, n_to, reason)

@@ -1319,3 +1319,123 @@ def test_engine_batched_equals_sequential_on_card_bf16(cuda):
             [seq.generate(p) for p in SERVE_PROMPTS]]
     assert _margin_rule(*logs, *outs) == 0.0
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the index lifecycle: policy migrations and epoch snapshots on the card
+# ---------------------------------------------------------------------------
+
+LIFE_CFG = dict(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,
+                max_layers=3, chunk_tokens=32, top_k=8, token_budget=1024,
+                index_shards=2)
+LIFE_QUANT = dict(quantized=True, coarse_mult=4, scan_bits=64, scan_seed=0)
+
+
+def _life_rag(device, quantized):
+    from repro_torch.core.erarag import EraRAG
+    cfg = EraRAGConfig(**LIFE_CFG, quantized_scan=quantized)
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 3)
+    rag = EraRAG(cfg, HashingEmbedder(dim=128), device=device)
+    for docs in [init] + rounds:
+        rag.insert_docs(docs)
+    rag.remove_docs(sorted({d for d, _ in rounds[-1]}))
+    rag.store.refresh()
+    questions = [qa.question for qa in corpus.qa[:16]]
+    return rag, np.asarray(rag.embedder.encode(questions), np.float32)
+
+
+def _hit_bits(store, q):
+    return [[(h.node_id, h.layer, h.seq,
+              int(np.float32(h.score).view(np.uint32))) for h in hits]
+            for filt in (None, "leaf", "summary")
+            for hits in store.search_batch(q, 8, filt)]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_policy_migration_on_card_equals_cpu(cuda, quantized):
+    """A skew-triggered 2 -> 4 migration and a tombstone-triggered
+    same-width replay, turn by turn on the card and on the CPU: the
+    same plans, progress, epochs and counters; hits equal, scores
+    within the kernels' tolerance."""
+    from repro_torch.lifecycle import LifecyclePolicy
+    rags = {dev: _life_rag(dev, quantized) for dev in (cuda, "cpu")}
+    (gpu, q), (cpu, _) = rags[cuda], rags["cpu"]
+    for policy in (LifecyclePolicy(skew_threshold=1e-6, min_rows=1,
+                                   max_shards=4),
+                   LifecyclePolicy(tombstone_threshold=1e-6, min_rows=1)):
+        if policy.tombstone_threshold:
+            for rag in (gpu, cpu):
+                rag.store._compact_threshold = 1.0
+                rag.remove_docs([n.doc_id for n in
+                                 rag.graph.nodes.values()
+                                 if n.layer == 0][:3])
+        for rag in (gpu, cpu):
+            rag.store.attach_lifecycle(policy)
+        epoch = gpu.store.epoch
+        while True:
+            gpu.store.refresh()
+            cpu.store.refresh()
+            a, b = gpu.store.migration, cpu.store.migration
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.describe() == b.describe()
+            assert gpu.store.epoch == cpu.store.epoch
+            if gpu.store.epoch > epoch:
+                break
+        for rag in (gpu, cpu):
+            rag.store.attach_lifecycle(None)
+        assert gpu.store.n_shards == cpu.store.n_shards == 4
+        stats = [dataclasses.asdict(r.store.stats) for r in (gpu, cpu)]
+        for st in stats:     # the scan counters move with the searches
+            st.pop("kernel_launches"), st.pop("quantized_scans")
+        assert stats[0] == stats[1]
+        for filt in (None, "leaf", "summary"):
+            for x, y in zip(gpu.store.search_batch(q, 8, filt),
+                            cpu.store.search_batch(q, 8, filt)):
+                assert [(h.node_id, h.seq) for h in x] == \
+                    [(h.node_id, h.seq) for h in y]
+                np.testing.assert_allclose([h.score for h in x],
+                                           [h.score for h in y],
+                                           rtol=0, atol=SCORE_TOL)
+    assert sum(sh.n_dead for sh in gpu.store._shards) == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_lifecycle_snapshot_crosses_card_and_cpu(cuda, quantized,
+                                                 tmp_path):
+    """A half-built migration snapshot taken on the card restores on the
+    CPU, is snapshotted there and restored back on the card: its arrays
+    bitwise the card's, and the card's resumed migration lands on the
+    unbroken migration's hits, score bits included."""
+    from repro_torch.lifecycle import LifecycleManager, LifecyclePolicy
+    rag, q = _life_rag(cuda, quantized)
+    store = rag.store
+    store.attach_lifecycle(LifecyclePolicy(skew_threshold=1e-6,
+                                           min_rows=1, max_shards=4))
+    store.refresh()
+    store.refresh()                       # 1 of 4 target shards built
+    assert len(store.migration.built) == 1
+    qkw = LIFE_QUANT if quantized else {}
+    card = LifecycleManager(store, tmp_path / "card")
+    card.snapshot(block=True)
+    on_cpu = card.restore(rag.graph, device="cpu", **qkw)
+    assert on_cpu.device.type == "cpu"
+    host = LifecycleManager(on_cpu, tmp_path / "cpu")
+    host.snapshot(block=True)
+    back = host.restore(rag.graph, device=cuda, **qkw)
+    assert back.device == store.device and back.quantized == quantized
+    from repro_torch.checkpoint import load_checkpoint
+    _, one, ex1 = load_checkpoint(tmp_path / "card")
+    _, two, ex2 = load_checkpoint(tmp_path / "cpu")
+    assert list(one) == list(two) and ex1 == ex2
+    for key in one:
+        assert np.array_equal(one[key], two[key]), key
+    lsh_ops.reset_launch_count()
+    while back.migration is not None or store.migration is not None:
+        back.refresh()
+        store.refresh()
+    assert back.epoch == store.epoch == 1 and back.n_shards == 4
+    if quantized:          # the staged shards' code planes re-hashed
+        assert lsh_ops.launch_count() > 0
+    assert _hit_bits(back, q) == _hit_bits(store, q)

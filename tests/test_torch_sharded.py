@@ -720,16 +720,30 @@ def test_erarag_reshard_facade():
 
 
 def test_policy_and_thresholds_still_raise():
+    """The lifecycle policy, once unported and raising, is served: the
+    thresholds attach it, a refresh consults it and starts a migration,
+    and ``None`` detaches it (the policy cases themselves are in
+    ``tests/test_torch_lifecycle.py``)."""
+    from repro_torch.lifecycle import LifecyclePolicy
     g = _graph()
     store = ShardedVectorStore(g, n_shards=2, **CPU)
     store.attach_lifecycle(None)
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        store.attach_lifecycle(object())
+    assert store._policy is None
     for kw in ({"reshard_skew_threshold": 1.5},
                {"reshard_tombstone_threshold": 0.2}):
         cfg = EraRAGConfig(**{**CFG_KW, "index_shards": 2, **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EraRAG(cfg, _EMB, **CPU)
+        rag = EraRAG(cfg, _EMB, **CPU)
+        assert rag.store._policy == LifecyclePolicy.from_config(cfg)
+    g.insert_chunks(_chunks(23, 30))
+    store.attach_lifecycle(LifecyclePolicy(skew_threshold=1e-6,
+                                           min_rows=1, max_shards=4))
+    store.refresh()
+    assert store.migration is not None and store.migration.plan.n_to == 4
+    store.attach_lifecycle(None)
+    while store.migration is not None:   # a detached policy lets the
+        store.refresh()                  # migration in flight finish
+    assert store.n_shards == 4 and store.migration is None
+    _assert_matches_fresh(store, g, _queries(23), 4)
 
 
 # ---------------------------------------------------------------------------

@@ -291,7 +291,7 @@ def test_init_params_scales_and_layout():
     assert torch.equal(model.final_norm, torch.ones(256))
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     cfg = _port_cfg("llama3-8b")
     model = T.init_params(cfg, torch.Generator())
     # LM serving is ported (slice 11): the forward passes over a KV
@@ -316,8 +316,16 @@ def test_unported_paths_raise():
         O.make_train_step(None, optimizer="adafactor")
     with pytest.raises(NotImplementedError, match="Adafactor"):
         O.opt_init(model, "adafactor")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_training(None, model, None, LoopConfig(ckpt_dir="x"))
+    # checkpointed training is served (slice 12): a run with ckpt_dir
+    # leaves its final step on disk (the resume parity is
+    # tests/test_torch_checkpoint.py)
+    ckpt_dir = tmp_path / "ck"
+    batch = synthetic_lm_batches(cfg.vocab_size, 2, 16, seed=0)
+    res = run_training(lambda m, b: T.loss_fn(m, b, cfg), model, batch,
+                       LoopConfig(max_steps=1, ckpt_dir=str(ckpt_dir),
+                                  log_every=0))
+    assert res.final_step == 1
+    assert (ckpt_dir / "step-00000001" / "manifest.json").is_file()
 
 
 def test_rope_and_rmsnorm_match_reference():
