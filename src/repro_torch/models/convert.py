@@ -3,24 +3,69 @@ arrays, to an ``LM`` and back.
 
 The tree is ``transformer.init_params``'s: ``embed`` (vocab, d),
 ``final_norm`` (d,), ``lm_head`` (d, vocab) unless the embeddings are
-tied, and ``layers``, a tuple of ``block_size`` dicts (one for a dense
-LM) whose leaves carry a leading ``n_blocks`` axis:
+tied, and ``layers``, a tuple of ``block_size`` sub-layer dicts (one for
+a dense LM) whose leaves carry a leading ``n_blocks`` axis:
 ``{"attn": {"wq", "wk", "wv", "wo"[, "bq", "bk", "bv"]},
-"ffn": {"w_gate", "w_up", "w_down"}, "ln1", "ln2"}``.  torch cannot
-reproduce ``jax.random.PRNGKey``, so the parity tests draw the weights
-in JAX and carry them over here; ``params_to_numpy(model, grads=True)``
-brings gradients back in the same tree for comparison.
+"ffn": {"w_gate", "w_up", "w_down"}, "ln1", "ln2"}``, where an MoE
+sub-layer's ``ffn`` is ``{"router", "w_gate", "w_up", "w_down"[,
+"shared": {"w_gate", "w_up", "w_down"}]}`` with the expert stacks
+(e, d, f) / (e, f, d).  Sub-layer ``j`` of block ``i`` is the port's
+layer ``i * block_size + j``.  torch cannot reproduce
+``jax.random.PRNGKey``, so the parity tests draw the weights in JAX
+and carry them over here; ``params_to_numpy(model, grads=True)`` brings
+gradients back in the same tree for comparison.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.common.config import LMConfig, not_ported
+from repro_torch.common.config import LMConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, block_size, n_blocks
+
+Leaf = Tuple[Tuple, List[torch.nn.Parameter], bool]
+
+
+def param_leaves(model: LM) -> List[Leaf]:
+    """Every leaf of the JAX parameter tree as (path, the port's
+    parameters it holds, stacked): a ``layers`` leaf stacks one
+    parameter a block on a new first axis, the others hold one."""
+    cfg = model.cfg
+    bs = block_size(cfg)
+    out: List[Leaf] = [(("embed",), [model.embed], False),
+                       (("final_norm",), [model.final_norm], False)]
+    if not cfg.tie_embeddings:
+        out.append((("lm_head",), [model.lm_head], False))
+    for j in range(bs):
+        blocks = model.layers[j::bs]
+        for name, _ in blocks[0].named_parameters():
+            out.append((("layers", j) + tuple(name.split(".")),
+                        [b.get_parameter(name) for b in blocks], True))
+    return out
+
+
+def param_tree(model: LM, leaf: Callable[[List[torch.nn.Parameter], bool],
+                                         Any]) -> Dict:
+    """The JAX parameter tree of ``model`` with each leaf
+    ``leaf(parameters, stacked)`` (see ``param_leaves``)."""
+    tree: Dict = {"layers": tuple({} for _ in range(block_size(model.cfg)))}
+    for path, params, stacked in param_leaves(model):
+        node = tree["layers"][path[1]] if path[0] == "layers" else tree
+        keys = path[2:] if path[0] == "layers" else path
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf(params, stacked)
+    return tree
+
+
+def _at(tree: Dict, path: Tuple):
+    node = tree
+    for key in path:
+        node = node[key]
+    return node
 
 
 @torch.no_grad()
@@ -29,10 +74,11 @@ def params_from_numpy(tree: Dict, cfg: LMConfig,
                       dtype=torch.float32) -> LM:
     """An ``LM`` holding the weights of a JAX parameter tree (numpy
     leaves), on ``device`` (default ``cuda``)."""
-    if cfg.is_moe:
-        raise not_ported("MoE layers (moe_fwd)", "11. MoE")
     device = resolve_device(device)
     model = LM(cfg, dtype, device)
+    if len(tree["layers"]) != block_size(cfg):
+        raise ValueError(f"{len(tree['layers'])} sub-layers a block for "
+                         f"blocks of {block_size(cfg)}")
 
     def put(param: torch.nn.Parameter, a) -> None:
         if tuple(np.shape(a)) != tuple(param.shape):
@@ -40,18 +86,16 @@ def params_from_numpy(tree: Dict, cfg: LMConfig,
                              f"{tuple(param.shape)}")
         param.copy_(torch.from_numpy(np.array(a, copy=True)))
 
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
-    if not cfg.tie_embeddings:
-        put(model.lm_head, tree["lm_head"])
-    (blk,) = tree["layers"]          # block_size is 1 for a dense LM
-    for i, layer in enumerate(model.layers):
-        for attr in ("attn", "ffn"):
-            mod = getattr(layer, attr)
-            for name, p in mod.named_parameters():
-                put(p, blk[attr][name][i])
-        put(layer.ln1, blk["ln1"][i])
-        put(layer.ln2, blk["ln2"][i])
+    for path, params, stacked in param_leaves(model):
+        a = _at(tree, path)
+        if not stacked:
+            put(params[0], a)
+            continue
+        if len(a) != n_blocks(cfg):
+            raise ValueError(f"{path}: {len(a)} blocks, not "
+                             f"{n_blocks(cfg)}")
+        for i, p in enumerate(params):
+            put(p, a[i])
     return model
 
 
@@ -64,19 +108,5 @@ def params_to_numpy(model: LM, *, grads: bool = False) -> Dict:
             raise ValueError("a parameter has no gradient")
         return t.detach().to("cpu", torch.float32).numpy()
 
-    def stack(get):
-        return np.stack([fn(get(layer)) for layer in model.layers])
-
-    def sub_tree(sub):
-        names = [n for n, _ in getattr(model.layers[0], sub)
-                 .named_parameters()]
-        return {n: stack(lambda L, n=n: getattr(getattr(L, sub), n))
-                for n in names}
-
-    block = {"attn": sub_tree("attn"), "ffn": sub_tree("ffn")}
-    block.update(ln1=stack(lambda L: L.ln1), ln2=stack(lambda L: L.ln2))
-    tree = {"embed": fn(model.embed), "layers": (block,),
-            "final_norm": fn(model.final_norm)}
-    if not model.cfg.tie_embeddings:
-        tree["lm_head"] = fn(model.lm_head)
-    return tree
+    return param_tree(model, lambda ps, stacked: np.stack(
+        [fn(p) for p in ps]) if stacked else fn(ps[0]))

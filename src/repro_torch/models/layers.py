@@ -1,29 +1,39 @@
-"""Shared neural layers: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Shared neural layers: RMSNorm, RoPE, GQA attention, SwiGLU, MoE.
 
 The layer functions take their weights as a dict of tensors named as in
 the JAX package (``p["wq"]``, ``p["w_gate"]``, ...) with the (in, out)
 layout, so ``x @ p["wq"]`` reads like the reference.  The ``nn.Module``s
-(``Attention``, ``SwiGLU``, ``DecoderLayer``) hold those parameters,
-under the same names, and hand them out cast to the compute dtype
-(``params(dtype)``); the cast is part of the autograd graph, so the
-gradients reach the fp32 master weights.
+(``Attention``, ``SwiGLU``, ``MoE``, ``DecoderLayer``) hold those
+parameters, under the same names, and hand them out cast to the compute
+dtype (``params(dtype)``); the cast is part of the autograd graph, so
+the gradients reach the fp32 master weights.
 
 ``attention_fwd`` has the reference's three branches.  Without a KV
 cache (training) it runs ``flash_attention``, the CUDA kernels on the
 card.  With one (serving) it writes the new K/V into the cache in
 place and attends with the plain compositions of
 ``kernels/flash_attention/ops.py``, as the JAX package's cache branches
-run XLA and no Pallas kernel.  The MoE FFN is not ported.
+run XLA and no Pallas kernel.  Rows that a launch does not write
+still attend over their own new K/V, as the reference's rows do in the
+new cache it builds (and then drops): their cache positions are saved,
+written, read and restored.
+
+The MoE FFN (``moe_route``, ``moe_fwd``) is the reference's XLA code
+as torch ops: token-choice top-k routing in fp32, each expert's top
+``capacity`` tokens, the experts' products as batched matmuls, and a
+combine that sums each token's expert outputs in expert order in the
+compute dtype, with no atomics, so a run repeats bitwise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common.config import LMConfig, not_ported
+from repro_torch.common.config import LMConfig, MoEConfig
 from repro_torch.kernels.flash_attention.ops import \
     causal_blocked_attention, chunked_attention, dense_decode_attention, \
     extend_attention, flash_attention
@@ -122,28 +132,61 @@ class SwiGLU(_Weights):
                           "w_down": (d_ff, d)}, dtype, device)
 
 
+class MoE(nn.Module):
+    """router (d, e), fp32 whatever ``dtype`` (as the reference draws
+    it), w_gate, w_up (e, d, f), w_down (e, f, d), and with
+    ``n_shared`` a ``SwiGLU`` named ``shared`` of width n_shared * f."""
+
+    def __init__(self, d: int, moe: MoEConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        e, f = moe.n_experts, moe.d_ff_expert
+        self.router = nn.Parameter(torch.empty((d, e), dtype=torch.float32,
+                                               device=device))
+        for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                            ("w_down", (e, f, d))):
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device)))
+        self.shared = SwiGLU(d, moe.n_shared * f, dtype, device) \
+            if moe.n_shared else None
+
+    def params(self, dtype: torch.dtype) -> Dict:
+        p = {n: getattr(self, n).to(dtype)
+             for n in ("router", "w_gate", "w_up", "w_down")}
+        if self.shared is not None:
+            p["shared"] = self.shared.params(dtype)
+        return p
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: attn, ffn, and the norms ln1, ln2
-    (ones).  ``attn`` and ``ffn`` default to uninitialised weights."""
+    """One pre-norm decoder layer: attn, ffn (a ``SwiGLU``, or an
+    ``MoE`` when ``moe``), and the norms ln1, ln2 (ones).  ``attn`` and
+    ``ffn`` default to uninitialised weights."""
 
     def __init__(self, cfg: LMConfig, dtype=torch.float32, device=None, *,
                  attn: Optional[Attention] = None,
-                 ffn: Optional[SwiGLU] = None):
+                 ffn: Optional[Union[SwiGLU, MoE]] = None,
+                 moe: bool = False):
         super().__init__()
-        if cfg.is_moe:
-            raise not_ported("MoE layers (moe_fwd)", "11. MoE")
         self.attn = attn if attn is not None else \
             Attention(cfg, dtype, device)
-        self.ffn = ffn if ffn is not None else \
-            SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        if ffn is None:
+            ffn = MoE(cfg.d_model, cfg.moe, dtype, device) if moe else \
+                SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        self.ffn = ffn
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                            device=device))
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                            device=device))
 
+    @property
+    def is_moe(self) -> bool:
+        return isinstance(self.ffn, MoE)
+
     def params(self, dtype: torch.dtype) -> Dict:
         """Every weight cast to ``dtype`` (the reference's mixed
-        precision: compute in the residual dtype, fp32 master weights)."""
+        precision: compute in the residual dtype, fp32 master weights;
+        the router too, which the MoE widens back to fp32)."""
         return {"attn": self.attn.params(dtype),
                 "ffn": self.ffn.params(dtype),
                 "ln1": self.ln1.to(dtype), "ln2": self.ln2.to(dtype)}
@@ -192,6 +235,45 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor, starts,
     cache[dst[:, None], :, pos] = new[src].transpose(1, 2)
 
 
+def _attend_written(kv_cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                    v: torch.Tensor, starts, write, attend):
+    """Write every row's K/V into the cache at ``starts`` (an int or a
+    (b,) tensor), return ``attend(ck, cv)``, and then give the rows
+    outside ``write`` back what those positions held.  Such a row thus
+    reads its own new K/V, as it does in the new cache the reference
+    builds, and keeps its cache row, as the reference keeps the old one.
+    ``write`` is None (every row written) or slot-indexed (src is dst)."""
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    if write is None:
+        _write_kv(ck, k, starts, None)
+        _write_kv(cv, v, starts, None)
+        return attend(ck, cv)
+    src, dst = write
+    if src is not dst:
+        raise ValueError("a launch that reads the cache writes its own rows")
+    b, l, max_len = k.shape[0], k.shape[2], ck.shape[2]
+    written = torch.zeros((b, 1, 1, 1), dtype=torch.bool, device=ck.device)
+    written[dst] = True
+    if isinstance(starts, int):
+        at = max(0, min(starts, max_len - l))
+        where = (slice(None), slice(None), slice(at, at + l))
+        new = (k, v)
+    else:
+        pos = starts.clamp(0, max_len - l)[:, None] + \
+            torch.arange(l, device=ck.device)[None, :]            # (b, l)
+        where = (torch.arange(b, device=ck.device)[:, None], slice(None),
+                 pos)
+        new = (k.transpose(1, 2), v.transpose(1, 2))
+    saved = []
+    for c, n in zip((ck, cv), new):
+        saved.append(c[where].clone())
+        c[where] = n.to(c.dtype)
+    out = attend(ck, cv)
+    for c, old in zip((ck, cv), saved):
+        c[where] = torch.where(written, c[where], old)
+    return out
+
+
 def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
                   positions: torch.Tensor, *, causal: bool = True,
                   kv_cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -217,7 +299,9 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
     ``write`` = (src, dst) index tensors writes batch row ``src[j]``
     into cache row ``dst[j]`` and no other row; None writes every row
     into its own.  Rows not written still compute (and the caller
-    discards) their outputs, so every shape is that of the whole batch.
+    discards) their outputs, so every shape is that of the whole batch;
+    where they read the cache, they read their own new K/V
+    (``_attend_written``), so their outputs are the reference's too.
     """
     b, l, d = x.shape
     h, hd = cfg.n_heads, cfg.d_head
@@ -242,35 +326,40 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
             raise ValueError("cache_len without a kv_cache")
         out = flash_attention(q, k, v, causal=causal)
     elif torch.is_tensor(cache_len) and cache_len.dim() >= 1:
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        starts = cache_len.to(device=ck.device, dtype=torch.int64)
-        _write_kv(ck, k, starts, write)
-        _write_kv(cv, v, starts, write)
+        starts = cache_len.to(device=kv_cache["k"].device,
+                              dtype=torch.int64)
         if l > 1:
-            out = extend_attention(q, ck, cv, offsets=starts,
-                                   block_k=block_k)
+            def attend(ck, cv):
+                return extend_attention(q, ck, cv, offsets=starts,
+                                        block_k=block_k)
         else:
-            out = dense_decode_attention(q, ck, cv, kv_len=starts + l)
-    else:
+            def attend(ck, cv):
+                return dense_decode_attention(q, ck, cv, kv_len=starts + l)
+        out = _attend_written(kv_cache, k, v, starts, write, attend)
+    elif l > 1:
         ck, cv = kv_cache["k"], kv_cache["v"]
         start = 0 if cache_len is None else int(cache_len)
         _write_kv(ck, k, start, write)
         _write_kv(cv, v, start, write)
-        if l > 1:
-            if causal and l >= 2048:
-                out = causal_blocked_attention(q, k, v,
-                                               q_chunk=max(2048, l // 8))
-            else:
-                out = chunked_attention(q, k, v, causal=causal,
-                                        block_k=block_k)
-        elif cache_len is None:
-            out = dense_decode_attention(q, ck, cv)
+        if causal and l >= 2048:
+            out = causal_blocked_attention(q, k, v,
+                                           q_chunk=max(2048, l // 8))
         else:
-            n = start + l
-            out = dense_decode_attention(
+            out = chunked_attention(q, k, v, causal=causal,
+                                    block_k=block_k)
+    elif cache_len is None:
+        out = _attend_written(kv_cache, k, v, 0, write,
+                              lambda ck, cv: dense_decode_attention(q, ck,
+                                                                    cv))
+    else:
+        n = int(cache_len) + l
+
+        def attend(ck, cv):
+            return dense_decode_attention(
                 q, ck[:, :, :n], cv[:, :, :n],
                 kv_len=torch.full((b,), n, dtype=torch.int64,
                                   device=x.device))
+        out = _attend_written(kv_cache, k, v, int(cache_len), write, attend)
     out = out.transpose(1, 2).reshape(b, l, h * hd)
     return out @ p["wo"], kv_cache
 
@@ -292,3 +381,124 @@ def swiglu_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"])
     u = x @ p["w_up"]
     return (g * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: token-choice top-k routing, capacity-bounded gather dispatch
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def moe_init(generator: torch.Generator, d: int, moe: MoEConfig,
+             dtype=torch.float32) -> MoE:
+    """The reference's draws: the router by ``dense_init`` in fp32, each
+    expert stack normal times sqrt(2 / (fan_in + fan_out)) of its last
+    two axes, the shared experts by ``swiglu_init``."""
+    e, f = moe.n_experts, moe.d_ff_expert
+    mod = MoE(d, moe, dtype, generator.device)
+    mod.router.copy_(dense_init(generator, d, e, dtype=torch.float32))
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                        ("w_down", (e, f, d))):
+        w = getattr(mod, name)
+        for i in range(e):          # one expert at a time: no fp32 stack
+            w[i].copy_(torch.randn(shape[1:], generator=generator,
+                                   dtype=torch.float32,
+                                   device=generator.device)
+                       .mul_((2.0 / (shape[-2] + shape[-1])) ** 0.5))
+    if moe.n_shared:
+        mod.shared = swiglu_init(generator, d, moe.n_shared * f, dtype)
+    return mod
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: the k largest values in
+    descending order, equal values in ascending index order (a stable
+    sort; ``torch.topk`` does not promise the order of ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class Routing(NamedTuple):
+    """One MoE launch's dispatch: each token's experts (``gate_idx``
+    (t, k), top-k order) and gates (``gates`` (t, e), fp32, 0 where not
+    chosen); each expert's ``capacity`` tokens (``sel_idx`` (e, c), by
+    gate, ties to the lower token) with their gates (``sel_val``) and
+    whether the slot holds a routed token (``live``); the aux loss."""
+
+    gate_idx: torch.Tensor
+    gates: torch.Tensor
+    sel_val: torch.Tensor
+    sel_idx: torch.Tensor
+    live: torch.Tensor
+    aux: torch.Tensor
+
+
+def moe_capacity(t: int, moe: MoEConfig) -> int:
+    """Slots an expert takes from a launch of ``t`` tokens (every token,
+    padding and idle rows included), by the reference's expression."""
+    capacity = int(np.ceil(t * moe.top_k / moe.n_experts *
+                           moe.capacity_factor))
+    return max(1, min(capacity, t))
+
+
+def moe_route(router: torch.Tensor, xf: torch.Tensor,
+              moe: MoEConfig) -> Routing:
+    """Token-choice top-k routing of ``xf`` (t, d).  The router arrives
+    in the compute dtype (the layer casts every weight) and multiplies
+    ``xf`` widened to fp32, as ``xf.astype(f32) @ router`` promotes in
+    the reference; softmax, top-k and the gates are fp32."""
+    t = xf.shape[0]
+    e, k_top = moe.n_experts, moe.top_k
+    logits = xf.to(torch.float32) @ router.to(torch.float32)     # (t, e)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k_top)                    # (t, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    gates = torch.zeros_like(probs).scatter(1, gate_idx, gate_vals)
+    # load-balance aux loss (Switch): e * sum_e (frac_tokens * frac_prob)
+    frac_tokens = torch.bincount(gate_idx.reshape(-1), minlength=e) \
+        .to(torch.float32) / t
+    frac_probs = probs.mean(dim=0)
+    aux = moe.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
+    sel_val, sel_idx = top_k(gates.T, moe_capacity(t, moe))     # (e, c)
+    return Routing(gate_idx, gates, sel_val, sel_idx, sel_val > 0.0, aux)
+
+
+def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, l, d) -> (out, aux loss), the reference's dispatch: each
+    expert runs its top-``capacity`` tokens among all b * l (overflow
+    drops), and a token's output is the sum of its live experts'
+    outputs times their gates, plus the shared experts.
+
+    The reference scatter-adds the (e, c) outputs into a (t, d) zero
+    tensor in the compute dtype, in expert-major order.  Here each
+    token gathers its k contributions, ordered by expert, and they are
+    added one after another in the compute dtype: the same sums, in the
+    same order, with no atomic add (two runs are bitwise equal)."""
+    b, l, d = x.shape
+    t = b * l
+    xf = x.reshape(t, d)
+    r = moe_route(p["router"], xf, moe)
+    e, c = r.sel_idx.shape
+
+    xe = xf[r.sel_idx.reshape(-1)].reshape(e, c, d)
+    g = F.silu(torch.bmm(xe, p["w_gate"]))
+    u = torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(g * u, p["w_down"])                           # (e, c, d)
+
+    # slot[e, token]: the token's slot in expert e's selection, or -1
+    ar = torch.arange(c, device=x.device).expand(e, c)
+    slot = torch.full((e, t), -1, dtype=torch.int64, device=x.device) \
+        .scatter(1, r.sel_idx, torch.where(r.live, ar, -1))
+    experts, _ = torch.sort(r.gate_idx, dim=1)                   # (t, k)
+    tokens = torch.arange(t, device=x.device)[:, None]
+    s = slot[experts, tokens]                                    # (t, k)
+    w = torch.gather(r.gates, 1, experts).to(ye.dtype)
+    contrib = ye[experts, s.clamp_min(0)] * w[..., None]        # (t, k, d)
+    contrib = torch.where((s >= 0)[..., None], contrib,
+                          torch.zeros((), dtype=ye.dtype, device=x.device))
+    out = contrib[:, 0]
+    for j in range(1, contrib.shape[1]):
+        out = out + contrib[:, j]
+    out = out.to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu_fwd(p["shared"], xf)
+    return out.reshape(b, l, d), r.aux

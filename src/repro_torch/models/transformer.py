@@ -1,8 +1,13 @@
-"""Decoder-only LM (dense): init and the training loss.
+"""Decoder-only LM (dense or MoE): init and the training loss.
 
 ``LM`` holds the weights: ``embed`` (vocab, d), ``layers`` (one
 ``DecoderLayer`` each), ``final_norm`` and, unless the embeddings are
-tied, ``lm_head`` (d, vocab).  Master weights are fp32; each layer casts
+tied, ``lm_head`` (d, vocab).  An MoE config's layers come in blocks
+of ``block_size`` (``moe_every``): the last layer of a block has an
+``MoE`` FFN, the others a ``SwiGLU`` (llama4's [dense, moe]), as the
+reference's scan steps over blocks; layer ``i * bs + j`` is sub-layer
+``j`` of the reference's block ``i``.  The MoE layers' aux losses sum
+into ``loss_fn``'s loss.  Master weights are fp32; each layer casts
 them to the residual-stream dtype (bf16 by default) inside its forward,
 as the JAX package does at ``transformer.py:112-114``.  Each layer runs
 under ``torch.utils.checkpoint`` (non-reentrant), standing in for the
@@ -17,7 +22,9 @@ reference's layout) with no checkpoint: ``prefill``, ``prefill_padded``
 reused prefixes) and ``decode_step``.  Where the JAX functions return a
 new cache, these write the one they are given in place and return it;
 ``slots`` and ``rows`` restrict the writes to the rows a serving engine
-keeps, so no call copies a cache.  MoE is not ported yet and raises.
+keeps, so no call copies a cache.  The reference's cache is a tuple of
+``block_size`` such pairs, each (n_blocks, ...); its pair ``j`` at block
+``i`` is layer ``i * bs + j`` here.
 """
 from __future__ import annotations
 
@@ -28,28 +35,46 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.config import LMConfig, not_ported
+from repro_torch.common.config import LMConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.layers import DecoderLayer, attention_fwd, \
-    attention_init, dense_init, rmsnorm, swiglu_fwd, swiglu_init
+    attention_init, dense_init, moe_fwd, moe_init, rmsnorm, swiglu_fwd, \
+    swiglu_init
+
+
+def block_size(cfg: LMConfig) -> int:
+    """Layers per block: ``moe_every`` for interleaved-MoE configs."""
+    return cfg.moe_every if cfg.is_moe else 1
+
+
+def n_blocks(cfg: LMConfig) -> int:
+    if cfg.n_layers % block_size(cfg):
+        raise ValueError(f"{cfg.n_layers} layers in blocks of "
+                         f"{block_size(cfg)}")
+    return cfg.n_layers // block_size(cfg)
+
+
+def is_moe_layer(cfg: LMConfig, i: int) -> bool:
+    """Whether layer ``i`` has an MoE FFN: the last of each block."""
+    return cfg.is_moe and i % block_size(cfg) == block_size(cfg) - 1
 
 
 class LM(nn.Module):
-    """The weights of a dense decoder-only LM (uninitialised; see
+    """The weights of a decoder-only LM (uninitialised; see
     ``init_params`` and ``convert.params_from_numpy``)."""
 
     def __init__(self, cfg: LMConfig, dtype=torch.float32, device=None,
                  layers=None):
         super().__init__()
-        if cfg.is_moe:
-            raise not_ported("MoE layers (moe_fwd)", "11. MoE")
+        n_blocks(cfg)
         self.cfg = cfg
         d, vocab = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty((vocab, d), dtype=dtype,
                                               device=device))
         self.layers = nn.ModuleList(
             layers if layers is not None else
-            [DecoderLayer(cfg, dtype, device) for _ in range(cfg.n_layers)])
+            [DecoderLayer(cfg, dtype, device, moe=is_moe_layer(cfg, i))
+             for i in range(cfg.n_layers)])
         self.final_norm = nn.Parameter(torch.ones(d, dtype=dtype,
                                                   device=device))
         if not cfg.tie_embeddings:
@@ -76,11 +101,13 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     device = generator.device
     embed = dense_init(generator, cfg.vocab_size, cfg.d_model, scale=0.02,
                        dtype=dtype)
-    layers = [DecoderLayer(cfg, dtype, device,
-                           attn=attention_init(generator, cfg, dtype),
-                           ffn=swiglu_init(generator, cfg.d_model, cfg.d_ff,
-                                           dtype))
-              for _ in range(cfg.n_layers)]
+    layers = []
+    for i in range(cfg.n_layers):
+        attn = attention_init(generator, cfg, dtype)
+        ffn = moe_init(generator, cfg.d_model, cfg.moe, dtype) \
+            if is_moe_layer(cfg, i) else \
+            swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        layers.append(DecoderLayer(cfg, dtype, device, attn=attn, ffn=ffn))
     model = LM(cfg, dtype, device, layers=layers)
     model.embed.copy_(embed)
     del embed
@@ -96,7 +123,8 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 def _layer_fwd(layer: DecoderLayer, x: torch.Tensor, cfg: LMConfig,
                positions: torch.Tensor, kv_cache=None, cache_len=None,
-               write=None) -> torch.Tensor:
+               write=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x after the layer, its aux loss: 0 for a dense FFN)."""
     # mixed precision: compute in the residual-stream dtype, master
     # weights stay fp32 in the optimizer (a no-op cast for a model held
     # in the compute dtype, as the serving engine holds it)
@@ -106,18 +134,30 @@ def _layer_fwd(layer: DecoderLayer, x: torch.Tensor, cfg: LMConfig,
                          cache_len=cache_len, write=write)
     x = x + h
     y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu_fwd(lp["ffn"], y)
+    if layer.is_moe:
+        ff, aux = moe_fwd(lp["ffn"], y, cfg.moe)
+    else:
+        ff = swiglu_fwd(lp["ffn"], y)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, aux
 
 
 def _backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
               positions: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, None]:
     """Every layer in order, each under one checkpoint.  Returns
-    (hidden, aux_sum, None); a dense LM has no aux loss."""
-    for layer in model.layers:
-        x = checkpoint(_layer_fwd, layer, x, cfg, positions,
-                       use_reentrant=False)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+    (hidden, aux_sum, None): the sum of each block's aux, each block's
+    summed over its layers, as the reference adds them."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    bs = block_size(cfg)
+    for i in range(0, cfg.n_layers, bs):
+        block = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in model.layers[i:i + bs]:
+            x, a = checkpoint(_layer_fwd, layer, x, cfg, positions,
+                              use_reentrant=False)
+            block = block + a
+        aux = aux + block
+    return x, aux, None
 
 
 def _logits(model: LM, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -179,9 +219,9 @@ def _cached_backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
     """Every layer in order over its slice of ``caches`` (written in
     place), then the final norm."""
     for i, layer in enumerate(model.layers):
-        x = _layer_fwd(layer, x, cfg, positions,
-                       {"k": caches["k"][i], "v": caches["v"][i]},
-                       cache_len, write)
+        x, _ = _layer_fwd(layer, x, cfg, positions,
+                          {"k": caches["k"][i], "v": caches["v"][i]},
+                          cache_len, write)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -194,6 +234,15 @@ def _last_real(x: torch.Tensor, lengths) -> torch.Tensor:
 
 def _index(rows, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def _own_rows(rows, b: int, device):
+    """``attention_fwd``'s ``write`` for a launch that writes batch row
+    r into cache row r for r in ``rows``: None when that is every row."""
+    if rows is None or len(set(rows)) == b:
+        return None
+    idx = _index(rows, device)
+    return idx, idx
 
 
 def prefill(model: LM, tokens, cfg: LMConfig, max_len: Optional[int] = None,
@@ -253,15 +302,14 @@ def prefill_extend(model: LM, tokens, lengths, offsets, caches: KVCache,
     position ``offsets[b] + i`` (RoPE, cache write, causal mask), so its
     K/V and logits are those of a cold full-prompt prefill whose first
     ``offsets[b]`` tokens made the prefix.  Only ``rows`` (default:
-    all) are written into ``caches``; a row of length 0 computes
-    garbage the caller discards.  Returns (logits (b, vocab), caches)."""
+    all) are written into ``caches``; the others compute what the
+    reference computes for them (their own K/V in view) and a row of
+    length 0 garbage, which the caller discards.  Returns (logits
+    (b, vocab), caches)."""
     tokens = _as_tokens(tokens, model.device)
     b, l = tokens.shape
     offsets = _as_tokens(offsets, model.device)
-    write = None
-    if rows is not None:
-        idx = _index(rows, model.device)
-        write = (idx, idx)
+    write = _own_rows(rows, b, model.device)
     positions = offsets[:, None] + torch.arange(l, device=model.device)
     x = model.embed[tokens].to(compute_dtype)
     x = _cached_backbone(model, x, cfg, positions, caches, offsets, write)
@@ -274,14 +322,12 @@ def decode_step(model: LM, tokens, caches: KVCache, cache_len: int,
                 rows=None) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode of ``tokens`` (b, 1) at position ``cache_len``
     (one int for every row): (logits (b, vocab), caches).  Only ``rows``
-    (default: all) are written into ``caches``."""
+    (default: all) are written into ``caches``; the others attend over
+    their own new K/V, as in the reference, and keep their cache."""
     tokens = _as_tokens(tokens, model.device)
     b, l = tokens.shape
     cache_len = int(cache_len)
-    write = None
-    if rows is not None:
-        idx = _index(rows, model.device)
-        write = (idx, idx)
+    write = _own_rows(rows, b, model.device)
     positions = cache_len + torch.arange(l, device=model.device)
     x = model.embed[tokens].to(compute_dtype)
     x = _cached_backbone(model, x, cfg, positions, caches, cache_len, write)

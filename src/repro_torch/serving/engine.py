@@ -35,12 +35,19 @@ pre-cache engine.
 
 Every launch keeps the ``(max_batch, ·)`` shapes, so a row's result
 does not depend on how many rows are live, and writes the shared cache
-only at the rows it serves: the rest of the cache is never copied or
-touched.  Positions past a row's frontier keep an earlier occupant's
-K/V where the reference holds zeros; both are masked and finite, and
-their probabilities are exactly 0.  The engine holds its ``LM`` in its
-compute dtype (a model in another dtype is cast once, at
-construction), and runs every call under ``torch.inference_mode``.
+only at the rows it serves: the rest of the cache is never copied, and
+rows outside the launch's group are left as they were.  Those rows
+still compute what the reference computes for them, and an MoE layer
+needs that: its experts' capacity is shared by every token of a launch,
+so a row's garbage can take a slot from a served row.  So a cold
+admission gives its slot the reference's whole new cache row (its K/V,
+zeros past the bucket), and in decode and suffix prefill every row
+attends over its own new K/V (``layers._attend_written``), as the
+reference's rows do in the caches it builds and then drops.  The cache
+thus holds, position for position, what the reference's holds.  The
+engine holds its ``LM`` in its compute dtype (a model in another dtype
+is cast once, at construction), and runs every call under
+``torch.inference_mode``.
 
 This is the LLM backend for EraRAG's summarizer (``LMSummarizer``) and
 for ``RAGPipeline``'s LM reader and multihop bridge extraction.
@@ -83,10 +90,13 @@ class _Slot:
 
 
 def _in_dtype(model: T.LM, dtype: torch.dtype) -> T.LM:
-    """``model`` itself when its weights are all ``dtype``, else a copy
-    cast to it.  ``final_norm`` keeps its dtype: the reference widens it
-    to fp32 inside the norm, never rounding it to the compute dtype."""
-    if all(p.dtype == dtype for p in model.parameters()):
+    """``model`` itself when its weights are in the dtypes an ``LM`` of
+    ``dtype`` holds (an MoE router stays fp32), else a copy cast to
+    them.  ``final_norm`` keeps its dtype: the reference widens it to
+    fp32 inside the norm, never rounding it to the compute dtype."""
+    held = T.LM(model.cfg, dtype, "meta")
+    if all(p.dtype == q.dtype for p, q in zip(model.parameters(),
+                                               held.parameters())):
         return model
     cast = T.LM(model.cfg, dtype, model.device)
     with torch.no_grad():
@@ -285,6 +295,10 @@ class Engine:
             with self.tracer.span("prefill", bucket=blen,
                                   prompts=len(group), prefix_hit=False):
                 logits, _ = self._prefill_bucket(tokens, lengths, slots)
+                # the rest of each slot's row as in the reference's new
+                # cache: zeros past the bucket
+                for c in self.caches.values():
+                    c[:, slots, :, blen:] = 0
             self.stats["prefill_launches"] += 1
             self.stats["prefill_prompts"] += len(group)
             firsts = self._pick(logits, list(range(len(group))),

@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.checkpoint.store import CheckpointManager, \
     load_checkpoint
-from repro_torch.train.optimizer import AdamWState, make_train_step, \
-    opt_init
+from repro_torch.train.optimizer import make_train_step, opt_init, \
+    tree_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -62,10 +62,17 @@ class LoopResult:
 
 
 def _ckpt_tree(state: TrainState) -> dict:
-    """``{"params": {name: tensor}, "opt": AdamWState}``: what a
-    checkpoint holds."""
+    """``{"params": {name: tensor}, "opt": AdamWState or
+    AdafactorState}``: what a checkpoint holds, the optimizer's step as
+    the reference's int32."""
+    opt = state.opt_state
     return {"params": dict(state.params.named_parameters()),
-            "opt": state.opt_state}
+            "opt": opt._replace(step=np.int32(opt.step))}
+
+
+def _state_tensors(opt) -> list:
+    return tree_leaves([getattr(opt, f) for f in opt._fields
+                        if f != "step"])
 
 
 @torch.no_grad()
@@ -78,10 +85,11 @@ def _load_into(state: TrainState, path: Path, step: int) -> None:
     for name, value in tree["params"].items():
         named[name].copy_(value)
     opt = state.opt_state
-    for dst, src in zip(opt.mu + opt.nu, tree["opt"].mu + tree["opt"].nu):
+    for dst, src in zip(_state_tensors(opt), _state_tensors(tree["opt"])):
         dst.copy_(src)
-    # AdamW's bias correction reads the step: it must round-trip exactly
-    state.opt_state = AdamWState(int(tree["opt"].step), opt.mu, opt.nu)
+    # both optimizers read the step (bias correction, beta2): it must
+    # round-trip exactly
+    state.opt_state = opt._replace(step=int(tree["opt"].step))
     state.step = int(extra["step"])
 
 

@@ -1439,3 +1439,89 @@ def test_lifecycle_snapshot_crosses_card_and_cpu(cuda, quantized,
     if quantized:          # the staged shards' code planes re-hashed
         assert lsh_ops.launch_count() > 0
     assert _hit_bits(back, q) == _hit_bits(store, q)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN and Adafactor on the card
+# ---------------------------------------------------------------------------
+def _moe(device, dtype=torch.float32):
+    from repro_torch.configs.deepseek_moe_16b import deepseek_moe_16b
+    from repro_torch.models.layers import moe_init
+    cfg = dataclasses.replace(deepseek_moe_16b().reduced(), d_model=128)
+    mod = moe_init(torch.Generator().manual_seed(0), cfg.d_model, cfg.moe,
+                   dtype)
+    return cfg, mod.to(device).requires_grad_(False)
+
+
+@pytest.mark.parametrize("b,l,skew", [(8, 1, 0.0), (4, 64, 0.0),
+                                      (4, 64, 3.0)])
+def test_moe_fwd_on_card_matches_cpu(cuda, b, l, skew):
+    """fp32: the same experts, capacity slots and liveness on both
+    devices, outputs and aux within 1e-5; the skewed launch drops."""
+    from repro_torch.models.layers import moe_fwd, moe_route
+    cfg, cpu_mod = _moe("cpu")
+    _, card_mod = _moe(cuda)
+    rng = np.random.default_rng(b + l)
+    x = rng.standard_normal((b, l, cfg.d_model)) + \
+        skew * rng.standard_normal(cfg.d_model)
+    x = torch.from_numpy((x / np.sqrt((x * x).mean(-1, keepdims=True)))
+                         .astype(np.float32))
+    routes = [moe_route(m.router, x.reshape(-1, cfg.d_model).to(dev),
+                        cfg.moe) for m, dev in ((cpu_mod, "cpu"),
+                                                (card_mod, cuda))]
+    for name in ("gate_idx", "sel_idx", "live"):
+        assert torch.equal(getattr(routes[0], name),
+                           getattr(routes[1], name).cpu()), name
+    if skew:
+        assert int(routes[1].live.sum()) < routes[1].gate_idx.numel()
+    want, want_aux = moe_fwd(cpu_mod.params(torch.float32), x, cfg.moe)
+    got, aux = moe_fwd(card_mod.params(torch.float32), x.to(cuda), cfg.moe)
+    assert float((got.cpu() - want).abs().max()) <= SCORE_TOL
+    assert abs(float(aux) - float(want_aux)) <= SCORE_TOL
+
+
+def test_moe_fwd_bf16_on_card_repeats_bitwise(cuda):
+    from repro_torch.models.layers import moe_fwd
+    cfg, mod = _moe(cuda, torch.bfloat16)
+    x = torch.randn((8, 128, cfg.d_model), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    p = mod.params(torch.bfloat16)
+    a, aux_a = moe_fwd(p, x, cfg.moe)
+    b, aux_b = moe_fwd(p, x, cfg.moe)
+    assert a.dtype == torch.bfloat16
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_adafactor_on_card_matches_cpu(cuda):
+    """Five updates over the reduced deepseek-moe-16b's parameter tree
+    (expert stacks, stacked norms, the fp32 router) in fp32: weights and
+    statistics within 1e-6 of the CPU's."""
+    from repro_torch.configs.deepseek_moe_16b import deepseek_moe_16b
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer as O
+    cfg = deepseek_moe_16b().reduced()
+    models = [init_params(cfg, torch.Generator().manual_seed(0))
+              for _ in range(2)]
+    models[1].to(cuda)
+    trees = [O.adafactor_params(m) for m in models]
+    states = [O.adafactor_init(t) for t in trees]
+    rng = np.random.default_rng(0)
+    for step in range(5):
+        grads = [torch.from_numpy(rng.standard_normal(p.shape).astype(
+            np.float32) * np.float32(1e-2)) for p in models[0].parameters()]
+        for i, (m, dev) in enumerate(zip(models, ("cpu", cuda))):
+            with torch.no_grad():
+                for p, g in zip(m.parameters(), grads):
+                    p.grad = g.to(dev)
+            _, states[i], _ = O.opt_update(
+                m, [p.grad for p in m.parameters()], states[i],
+                lr=1e-2 * (step + 1), kind="adafactor")
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= 1e-6
+    for a, b in zip(O.tree_leaves([states[0].vr, states[0].vc,
+                                   states[0].v]),
+                    O.tree_leaves([states[1].vr, states[1].vc,
+                                   states[1].v])):
+        assert float((b.cpu() - a).abs().max()) <= 1e-6 * max(
+            1.0, float(a.abs().max()))

@@ -290,3 +290,66 @@ def test_pipeline_with_both_caches_matches_cold_and_reference(twins):
     assert differ <= EXCEPTED, sorted(differ - EXCEPTED)
     assert reports[1]["launches"]["engine"]["generate_batches"] == 1
     twins.check()
+
+
+# ---------------------------------------------------------------------------
+# the same with an MoE LM (the MoE engine recipe of test_torch_moe.py)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def moe_twins():
+    """``make(**kw) -> (jax engine, port engine)`` on the deepseek-style
+    MoE recipe; ``check()`` holds every pair launch by launch."""
+    from test_torch_moe import _engines
+    checks = []
+
+    def make(**kw):
+        je, pe, check = _engines("deepseek", **kw)
+        checks.append(check)
+        return je, pe
+
+    make.check = lambda: [c() for c in checks]
+    return make
+
+
+def test_moe_lm_summarizer_matches_reference(moe_twins):
+    """Build, a growth round and a removal with an MoE LM summarizer
+    (batched): node ids, summaries, update tokens and the engines'
+    stats equal the reference's."""
+    kw = dict(INGEST_KW, summary_cache_size=0)
+    je, pe = moe_twins(max_batch=8, max_seq_len=64, max_new_tokens=4)
+    assert pe.cfg.is_moe
+    jax_rag = JaxRAG(JaxConfig(**kw), JaxEmbedder(dim=32),
+                     summarizer=JaxLMSummarizer(engine=je, max_tokens=4))
+    port = EraRAG(EraRAGConfig(**kw), HashingEmbedder(dim=32),
+                  summarizer=LMSummarizer(engine=pe, max_tokens=4),
+                  device="cpu")
+    for rag in (jax_rag, port):
+        rag.insert_docs(_docs(12))
+        rag.insert_docs(_docs(6, start=12))
+        rag.remove_docs(["d3"])
+    _assert_same_graph(jax_rag.graph, port.graph)
+    assert any(n.layer > 0 and n.text.startswith("tok")
+               for n in port.graph.nodes.values())
+    assert _tokens(port) == _tokens(jax_rag)
+    assert pe.stats == je.stats
+    moe_twins.check()
+
+
+def test_moe_lm_reader_matches_reference(served, moe_twins):
+    """An MoE LM reader: ``answer_batch`` and a multihop block give the
+    reference's answers (a launch's rows share expert capacity, so a
+    batch and one-at-a-time answers may differ, in both packages
+    alike)."""
+    rags, corpus = served
+    questions = [qa.question for qa in corpus.qa[:6]]
+    block = _mixed_multihop_block(corpus)
+    je, pe = moe_twins(max_batch=6, max_new_tokens=4)
+    out = {}
+    for name, pipe in (("jax", JaxPipeline(rags["jax"], engine=je)),
+                       ("port", RAGPipeline(rags["port"], engine=pe))):
+        out[name] = (pipe.answer_batch(questions),
+                     pipe.answer_batch(block, mode="multihop"))
+    for got, want in zip(out["port"], out["jax"]):
+        _same_answers(got, want)
+    assert pe.stats == je.stats and pe.stats["generate_batches"] == 3
+    moe_twins.check()
