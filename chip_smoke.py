@@ -25,8 +25,10 @@ package.  Phases, each printing one JSON line:
                  groups of 64 hyperplanes), at a growth round's chunk
                  batch and at n = 2^22 rows; each case's grid
                  (``lsh_grid``), launches a call (1, by the wrapper's
-                 count and the profiler's), event and device-only time
-                 and bound share; and the host time of one
+                 count over every profiled call; the profiler's records
+                 reported, each placed against the kept window), event
+                 and device-only time and bound share; and the host
+                 time of one
                  ``HyperplaneLSH.hash_packed`` call at the build's shape
                  beside its parts (the rows' copy to the card, the
                  kernel, the codes' copy back).
@@ -155,7 +157,7 @@ package.  Phases, each printing one JSON line:
                  questions in exactly 2 ``generate_batch`` calls; the
                  report's ``prefix_cache`` and ``launches.engine``.
 6j. ``serving_summarizer`` ``EraRAG`` with an ``LMSummarizer`` on the
-                 same weights (16 documents: 12 built, 4 grown), batched
+                 same weights (8 documents: 6 built, 2 grown), batched
                  and serial summaries, no prefix cache: summaries under
                  the margin rule, node ids and update tokens equal, the
                  serial run one ``generate_batch`` a segment, the
@@ -247,7 +249,7 @@ package.  Phases, each printing one JSON line:
                  kind and host share; the share of routed assignments
                  capacity dropped, prefill and decode (capacity 1 an
                  expert in decode).  ``moe_summarizer``: an
-                 ``LMSummarizer`` on it over 16 documents, every
+                 ``LMSummarizer`` on it over 8 documents, every
                  ``lsh_hash`` shape held.  ``moe_serving_rag``: the
                  ``serving_rag`` phase run with it as the LM reader (its
                  comparisons reported under the margin rule, not held:
@@ -267,13 +269,54 @@ package.  Phases, each printing one JSON line:
                  the loss must fall, attention on the tensor-core route
                  only; the attention kernels at its shape (hq = hkv = 16,
                  d = 128) held against the plain version and timed.
+12. ``families_start`` the card memory in use as the next phases
+                 begin (after a garbage collection).
+    ``recsys``   each of dcn-v2, deepfm, dien and mind at its full
+                 config through ``get_api(get_arch(name))`` (fused fp32
+                 tables of 13,130,240 x 16, 14,313,216 x 10 + the
+                 first-order column, 1,000,192 x 18 and 1,000,192 x
+                 64), in its 4 shapes: ``serve_p99`` (b = 512) and
+                 ``serve_bulk`` (b = 262144), ms a batch and rows/s;
+                 ``retrieval_cand`` (mind: 1 user x 1M candidates,
+                 top-100; the others score the 1M-row slab as serve
+                 batches, dien in 4 slices of 262,144); ``train_batch``
+                 (b = 65536): 5 AdamW steps on one fixed batch, step s,
+                 peak memory, the loss falling, and whether a backward
+                 repeats bitwise (reported); AdamW at the reference's
+                 3e-4, dcn-v2 at 1e-4 (``RECSYS_LR``).  Each shape's
+                 first rows (mind: the whole top-100) against the same
+                 weights on the CPU, within 1e-5 of the CPU's largest
+                 magnitude; the loss of the first rows and each of its
+                 gradient leaves too.
+    ``gnn``      gatedgcn (16 layers, d = 70, 47 classes) through
+                 ``get_api`` on ``full_graph_sm``, ``molecule`` and
+                 ``minibatch_lg`` (a ``NeighborSampler`` subgraph of 1024
+                 seeds at fanout (15, 10) from a 232,965-node host graph
+                 with a tenth of its edges, padded to 169,984 nodes and
+                 168,960 edges): two forwards bitwise, the 4-layer
+                 checkpoint groups bitwise no checkpoint (loss and
+                 grads), 5 AdamW steps with the loss falling;
+                 ``full_graph_sm`` against the CPU.
+    ``phi3_serving`` phi3-medium-14b at all 40 layers in bf16 behind an
+                 ``Engine`` of 8 slots x 4096 positions: the 8 serving
+                 prompts, 16 new tokens; decode against prefill; prefill
+                 ms by bucket, the decode step's median ms at 8 live
+                 slots against its byte bound, its kernels and host
+                 share.  These phases launch no kernel of the port
+                 (checked).
+    ``phi3_train`` phi3-medium-14b at full width, 4 layers, l = 4096:
+                 5 AdamW steps of 2 sequences in 2 microbatches, bf16;
+                 attention on the tensor-core route only, and its
+                 kernels at (1, 40, 10, 4096, 128) held against the
+                 plain version and timed.
 10. ``kernels``  one line listing every kernel with its numbers (the
                  ``lsh_hash`` and ``mips_topk`` entries with the
                  launches of phases 6c-6e and 6g-6j beside the main
                  path's, and every entry with the launches of
-                 ``live_day``, ``lifecycle``, ``train_resume`` and the
-                 MoE phases; the bf16 attention entries with the MoE
-                 training shape's case as ``moe_train_shape``).
+                 ``live_day``, ``lifecycle``, ``train_resume``, the
+                 MoE phases and ``phi3_train``; the bf16 attention
+                 entries with the MoE and phi3 training shapes' cases
+                 as ``moe_train_shape`` and ``phi3_train_shape``).
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -519,9 +562,12 @@ def lsh_flips(got, want, v, h, label):
 
 def lsh_times(v, h):
     """The kernel's and the plain version's times on rows ``v`` under
-    planes ``h``: grid, event and device-only times (the profiler must
-    see the kernel alone, at most once a call, as it may drop records)
-    beside the bound."""
+    planes ``h``: grid, event and device-only times beside the bound.
+    The wrapper launches its kernel once a call, by its own count, over
+    every profiled call; the profiler must see that kernel alone.  Its
+    records per call are reported, not held: it drops records, and has
+    held one more than the calls in a window of 10, so each record's
+    place against the kept window is reported too."""
     from repro_torch.kernels.common import lsh_grid, sm_count
     from repro_torch.kernels.lsh_hash import ops
     from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
@@ -535,14 +581,29 @@ def lsh_times(v, h):
     bound_ms, bound_by = bound(4.0 * (n * d + d * k + n * n_words),
                                2.0 * n * d * k)
     # device-only: the kernel without the wrapper's host work
-    launches = {}
-    kernels = kernel_ms(lambda: ops.lsh_hash(v, h), launches=launches)
+    calls = [0]
+
+    def call():
+        calls[0] += 1
+        return ops.lsh_hash(v, h)
+    launches, trace = {}, {}
+    before = ops.launch_count()
+    kernels = kernel_ms(call, launches=launches, trace=trace,
+                        expect=("lsh_hash_kernel",))
+    wrapper = ops.launch_count() - before
+    check(wrapper == calls[0],
+          f"lsh_hash n={n}: {wrapper} launches for {calls[0]} calls")
+    check(set(launches) == {"lsh_hash_kernel"},
+          f"lsh_hash n={n}: the profiler saw {launches}")
     device = sum(kernels.values())
-    check(set(launches) == {"lsh_hash_kernel"} and
-          0 < launches["lsh_hash_kernel"] <= 1,
-          f"lsh_hash n={n}: kernel launches per call {launches}")
+    outside = [r for r in trace["records"] if not r["in_window"]]
     return {"grid": lsh_grid(n, k, sm_count(v.device))._asdict(),
+            "profiled_calls": calls[0],
+            "profiled_wrapper_launches": wrapper,
             "profiler_launches_per_call": launches,
+            "profiler_records": len(trace["records"]),
+            "profiler_window_us": trace["window_us"],
+            "profiler_records_outside_window": outside,
             "kernel_ms": ms, "kernel_device_ms": kernels,
             "device_ms": device, "bound_share": bound_ms / ms,
             "device_bound_share": bound_ms / device if device else None,
@@ -2640,9 +2701,10 @@ def run_serving_rag(rag, corpus, model, cfg, phase="serving_rag"):
     return dict(path.counts)
 
 
-# the LM summarizers' corpus (cut from 32 documents to keep the whole
-# script near half its time limit)
-SUMMARY_DOCS = 16
+# the LM summarizers' corpus (cut from 32 documents, then 16, to keep
+# the whole script well inside its time limit); 3/4 built, 1/4 grown
+SUMMARY_DOCS = 8
+SUMMARY_BUILT = SUMMARY_DOCS * 3 // 4
 
 
 def run_serving_summarizer(model, cfg):
@@ -2670,8 +2732,8 @@ def run_serving_summarizer(model, cfg):
                      summarizer=LMSummarizer(eng, max_tokens=16),
                      device="cuda")
         t = time.perf_counter()
-        path.drive(lambda: rag.insert_docs(docs[:12]))
-        path.drive(lambda: rag.insert_docs(docs[12:]))
+        path.drive(lambda: rag.insert_docs(docs[:SUMMARY_BUILT]))
+        path.drive(lambda: rag.insert_docs(docs[SUMMARY_BUILT:]))
         runs[batched] = {"rag": rag, "log": log, "engine": eng,
                          "s": time.perf_counter() - t}
     cmp = margin_rule(runs[True]["log"], runs[False]["log"],
@@ -2695,7 +2757,8 @@ def run_serving_summarizer(model, cfg):
           "serving_summarizer: lsh_hash never launched")
     scans = _path_kernel_cases(path, "serving_summarizer", timed=True)
     emit("serving_summarizer", corpus=f"SyntheticCorpus(n_docs="
-         f"{SUMMARY_DOCS}, n_topics=8, seed=0): 12 built, 4 grown",
+         f"{SUMMARY_DOCS}, n_topics=8, seed=0): {SUMMARY_BUILT} built, "
+         f"{SUMMARY_DOCS - SUMMARY_BUILT} grown",
          reduced={"docs": [5000, SUMMARY_DOCS]}, max_tokens=16,
          segments=segments, node_ids_equal=same_ids,
          update_tokens=tokens[True],
@@ -3689,7 +3752,7 @@ def run_moe_serving(rag, corpus):
 
 def run_moe_summarizer(model, cfg):
     """``EraRAG`` with an ``LMSummarizer`` on deepseek-moe-16b, batched
-    summaries of 8 tokens, over 16 documents: every summary the engine
+    summaries of 8 tokens, over 8 documents: every summary the engine
     writes is hashed by ``lsh_hash``, each shape held against the plain
     hash."""
     from repro_torch.configs.erarag import ERARAG_DEFAULT
@@ -3924,6 +3987,589 @@ def run_moe_train():
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the RecSys and GNN families, phi3-medium
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("dcn-v2", "deepfm", "dien", "mind")
+RECSYS_TABLE_ROWS = {"dcn-v2": 13_130_240, "deepfm": 14_313_216,
+                     "dien": 1_000_192, "mind": 1_000_192}
+RECSYS_STEPS = 5
+# AdamW's rate: the reference's default (``train/loop.py``'s
+# ``base_lr``), but 1e-4 for dcn-v2, whose loss swings up at 3e-4 and
+# 1e-3 in both packages alike, the more the closer to full size
+# (``scripts/recsys_rates.py`` on the CPU: at 300,000 rows a field and
+# 32768 rows, 0.6932 -> 0.6952 at 3e-4 and -> 0.7358 at 1e-3 after one
+# step), and rose over 5 steps on the H100 at 3e-4
+RECSYS_LR = {"dcn-v2": 1e-4, "deepfm": 3e-4, "dien": 3e-4, "mind": 3e-4}
+# DIEN's two GRUs save every one of their 100 steps' tensors for the
+# backward: 25.8 GB for 32768 rows on the H100
+# (``saved_bytes_one_microbatch``), so about 52 GB at b = 65536; it
+# runs in 2 microbatches of 32768 (26.9 GB peak), and as the BCE loss is
+# a mean over rows the step's gradient is the same.  MIND's in-batch
+# softmax keeps one 65536^2 fp32 matrix (17.2 GB) and its backward
+# makes two more: a 55.0 GB peak at 1 microbatch, which fits, so MIND's
+# negatives stay the whole batch.
+RECSYS_MICROBATCHES = {"dcn-v2": 1, "deepfm": 1, "dien": 2, "mind": 1}
+# the slab of 1M candidates scored as serve batches: DIEN's 100 stacked
+# GRU states are 432 B a row twice over (the steps and their stack):
+# 86 GB at 1M rows, so 4 slices of 262,144
+RECSYS_SLAB_SLICE = {"dien": 262_144}
+RECSYS_CPU_ROWS = 256       # rows of each shape held against the CPU
+# card vs CPU, fp32 (the CPU tests' tolerances): outputs within 1e-5 of
+# the CPU's largest magnitude (MIND's 0.01-scale table puts its scores
+# near 1e-5, and its in-batch loss within about that of ln(rows)), the
+# loss within 1e-5 of the larger of 1 and its size, each gradient leaf
+# of that loss within 1e-4 relative Frobenius
+RECSYS_TOL = 1e-5
+RECSYS_GRAD_RTOL = 1e-4
+GNN_STEPS = 5
+GNN_LR = 1e-3
+GNN_TOL = 2e-2              # card vs CPU of the largest |logit|: bf16
+# minibatch_lg's host graph (reddit scale: 232,965 nodes) with a tenth
+# of its 114,615,892 edges, drawn uniformly: the CSR build (a stable
+# argsort) and the draw take seconds, not a minute; 49 in-edges a node
+# on average still saturate the (15, 10) fanout
+GNN_HOST_EDGES = 114_615_892 // 10
+PHI3_TRAIN_LAYERS = 4       # depth cut of phi3-medium's 40 layers
+
+
+def _recsys_batch(cfg, specs, seed):
+    """Inputs of the shapes ``specs`` gives, drawn on the card from a
+    seeded generator: ids uniform over each field's vocab (``sparse``)
+    or the whole table (``hist``, ``target``, ``candidates``), lengths
+    1..S, labels 0/1, dense features N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total = int(sum(cfg.vocab_sizes))
+    out = {}
+    for key, spec in specs.items():
+        shape = tuple(spec.shape)
+        if key == "sparse":
+            hi = torch.tensor(cfg.vocab_sizes, device="cuda")
+            u = torch.rand(shape, generator=gen, device="cuda")
+            out[key] = torch.minimum((u * hi).long(), hi - 1).int()
+        elif key in ("hist", "target", "candidates"):
+            out[key] = torch.randint(0, total, shape, generator=gen,
+                                     device="cuda", dtype=torch.int32)
+        elif key == "hist_len":
+            out[key] = torch.randint(1, cfg.seq_len + 1, shape,
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+        elif key == "labels":
+            out[key] = torch.randint(0, 2, shape, generator=gen,
+                                     device="cuda").float()
+        else:
+            out[key] = torch.randn(shape, generator=gen, device="cuda")
+    return out
+
+
+def _rows(batch, n):
+    """The first ``n`` rows of every leaf (candidates, one user's slab,
+    kept whole)."""
+    return {k: v if k == "candidates" else v[:n] for k, v in batch.items()}
+
+
+def _to_cpu(x):
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x.detach().cpu()
+
+
+def _cpu_model(model):
+    from repro_torch.models.layers import ParamTree
+    return ParamTree(model.tree(lambda p: p.detach().cpu()))
+
+
+def _max_err(got, want):
+    return float((got.double().cpu() - want.double()).abs().max())
+
+
+def _recsys_serve(name, cfg, api, model, cpu_model, shape):
+    """A serve shape on the card: ms a batch, rows/s, and its first
+    rows against the CPU; the slab shape also in slices where the
+    bytes force them."""
+    from repro_torch.kernels.timing import time_ms
+
+    spec = cfg.shape(shape)
+    step = api.step_fn(spec)
+    batch = _recsys_batch(cfg, api.input_specs(spec), seed=7)
+    rows = spec.batch if spec.kind != "retrieval-scoring" or \
+        cfg.interaction == "multi-interest" else spec.n_candidates
+    sl = RECSYS_SLAB_SLICE.get(name) if rows == spec.n_candidates else None
+
+    def run():
+        with torch.inference_mode():
+            if not sl:
+                return step(model, batch)
+            return torch.cat([step(model, {k: v[i:i + sl]
+                                           for k, v in batch.items()})
+                              for i in range(0, rows, sl)])
+
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    ms = time_ms(run, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    res = {"rows": rows, "ms": ms, "rows_per_s": rows / ms * 1e3,
+           "slice_rows": sl, "max_memory_allocated_bytes": peak}
+    if isinstance(out, tuple):            # MIND: 1 user x 1M candidates
+        vals, ids = out
+        with torch.inference_mode():
+            cv, ci = step(cpu_model, _to_cpu(batch))
+        check(torch.equal(ids.cpu(), ci),
+              f"recsys {name} {shape}: top-100 ids differ from the CPU's")
+        err, want = _max_err(vals, cv), cv
+        cand = batch["candidates"].cpu()
+        top = cand[ids[0].cpu()]
+        res.update(top_k=int(ids.shape[-1]), ids_equal_cpu=True,
+                   max_abs_err=err, distinct_ids_in_top=int(
+                       top.unique().numel()),
+                   tied_ranks=int((vals[0, 1:] == vals[0, :-1]).sum()))
+    else:
+        check(out.shape == (rows,) and bool(torch.isfinite(out).all()),
+              f"recsys {name} {shape}: output {tuple(out.shape)}")
+        n = RECSYS_CPU_ROWS
+        with torch.inference_mode():
+            want = step(cpu_model, _to_cpu(_rows(batch, n)))
+        err = _max_err(out[:n], want)
+        res.update(cpu_rows=n, max_abs_err=err)
+    scale = float(want.abs().max())
+    res.update(cpu_max_abs=scale)
+    check(0 < scale and err <= RECSYS_TOL * scale,
+          f"recsys {name} {shape}: card vs CPU {err} of {scale}")
+    del batch, out
+    return res
+
+
+def _saved_bytes(fn):
+    """Bytes of the distinct storages autograd saves for the backward of
+    ``fn()``'s output (its forward run once, then dropped).  The hook
+    keeps a detached view: an op's own output, packed as itself, would
+    hold its graph in a cycle that is never freed."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+        return t.detach()
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    del out
+    return sum(seen.values())
+
+
+def _recsys_train(name, cfg, api, model, cpu_model):
+    """5 AdamW steps on one fixed train_batch; the loss of its first
+    rows and that loss's gradients against the CPU, and whether a
+    backward repeats bitwise."""
+    from repro_torch.train.optimizer import make_train_step, microbatch, \
+        opt_init
+
+    spec = cfg.shape("train_batch")
+    loss_of = api.step_fn(spec)
+    batch = _recsys_batch(cfg, api.input_specs(spec), seed=3)
+    n = RECSYS_CPU_ROWS
+    card_loss = loss_of(model, _rows(batch, n))[0]
+    cpu_loss = loss_of(cpu_model, _to_cpu(_rows(batch, n)))[0]
+    card_loss.backward()
+    cpu_loss.backward()
+    card_loss, cpu_loss = card_loss.item(), cpu_loss.item()
+    loss_err = abs(card_loss - cpu_loss)
+    check(loss_err <= RECSYS_TOL * max(1.0, abs(cpu_loss)),
+          f"recsys {name} train_batch: card loss {card_loss} vs CPU "
+          f"{cpu_loss}")
+    grad_err = {k: _rel_fro(a.grad.cpu(), b.grad) for (k, a), b in
+                zip(model.named_parameters(), cpu_model.parameters())}
+    for p in (*model.parameters(), *cpu_model.parameters()):
+        p.grad = None
+    check(max(grad_err.values()) <= RECSYS_GRAD_RTOL,
+          f"recsys {name} train_batch: gradients vs CPU {grad_err}")
+    # the gradient of one microbatch, twice from the same weights
+    n_mb = RECSYS_MICROBATCHES[name]
+    saved = _saved_bytes(lambda: loss_of(model,
+                                         microbatch(batch, 0, n_mb))[0])
+    grads = []
+    for _ in range(2):
+        loss_of(model, microbatch(batch, 0, n_mb))[0].backward()
+        grads.append([p.grad for p in model.parameters()])
+        for p in model.parameters():
+            p.grad = None
+    repeat = all(torch.equal(a, b) for a, b in zip(*grads))
+    differing = [i for i, (a, b) in enumerate(zip(*grads))
+                 if not torch.equal(a, b)]
+    del grads
+    step = make_train_step(loss_of, base_lr=RECSYS_LR[name],
+                           n_microbatches=n_mb)
+    opt = opt_init(model)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RECSYS_STEPS):
+        t = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"recsys {name} train_batch: losses {losses}")
+    names = [k for k, _ in model.named_parameters()]
+    return {"rows": spec.batch, "n_microbatches": n_mb,
+            "saved_bytes_one_microbatch": saved, "optimizer": "adamw",
+            "base_lr": RECSYS_LR[name], "losses": losses, "step_s": step_s,
+            "median_step_s_after_first": statistics.median(step_s[1:]),
+            "rows_per_s": spec.batch / statistics.median(step_s[1:]),
+            "max_memory_allocated_bytes": peak,
+            "cpu_rows": n, "loss_vs_cpu_abs_err": loss_err,
+            "grad_vs_cpu_rel_fro_err": grad_err,
+            "backward_bitwise_repeatable": repeat,
+            "grads_differing": [names[i] for i in differing]}
+
+
+def run_recsys(name):
+    """One RecSys architecture at its full config through ``get_api``:
+    its 4 shapes on the card, each held against the CPU on its first
+    rows (MIND's top-100 over the whole slab)."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.api import get_api
+
+    t0 = _phase_start()
+    cfg = get_arch(name)
+    api = get_api(cfg)
+    model, _ = api.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table = model["table"]
+    check(table.shape[0] == RECSYS_TABLE_ROWS[name],
+          f"recsys {name}: table rows {table.shape[0]}")
+    cpu_model = _cpu_model(model)
+    shapes = {s: _recsys_serve(name, cfg, api, model, cpu_model, s)
+              for s in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    shapes["train_batch"] = _recsys_train(name, cfg, api, model, cpu_model)
+    tables = {k: [tuple(p.shape), p.numel() * p.element_size()]
+              for k, p in model.named_parameters()
+              if k in ("table", "first")}
+    emit("recsys", model=name, source=cfg.source, init_s=init_s,
+         params=sum(p.numel() for p in model.parameters()),
+         param_count_config=cfg.param_count(), tables=tables,
+         shapes=shapes, **_phase_end(t0))
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def _gnn_graph(shape, n, e, n_classes, seed):
+    """(node_feat, edge_index, labels, label_mask, extra) of one GNN
+    shape, padded to (n, e): padding nodes are masked out of the loss,
+    padding edges are self-loops on them, one each in turn."""
+    from repro_torch.models.gnn import NeighborSampler
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    extra = {}
+    if shape.name == "minibatch_lg":
+        t = time.perf_counter()
+        host = rng.integers(0, shape.n_nodes, size=(2, GNN_HOST_EDGES),
+                            dtype=np.int64)
+        sampler = NeighborSampler(shape.n_nodes, host, seed=seed)
+        del host
+        csr_s = time.perf_counter() - t
+        t = time.perf_counter()
+        seeds = rng.choice(shape.n_nodes, shape.batch_nodes, replace=False)
+        nodes, ei, seed_mask = sampler.sample(seeds, shape.fanout)
+        extra = {"host_nodes": shape.n_nodes, "host_edges": GNN_HOST_EDGES,
+                 "host_edges_published": shape.n_edges,
+                 "csr_build_s": csr_s,
+                 "sample_s": time.perf_counter() - t,
+                 "sampled_nodes": int(len(nodes)),
+                 "sampled_edges": int(ei.shape[1])}
+        n_real, mask = len(nodes), seed_mask
+    elif shape.name == "molecule":
+        g, per_n, per_e = shape.graph_batch, shape.n_nodes, shape.n_edges
+        local = rng.integers(0, per_n, size=(g, 2, per_e))
+        ei = (local + (np.arange(g) * per_n)[:, None, None]
+              ).transpose(1, 0, 2).reshape(2, g * per_e)
+        n_real, mask = g * per_n, np.ones(g * per_n, dtype=bool)
+        extra = {"graphs": g,
+                 "graph_ids": np.repeat(np.arange(g), per_n)}
+    else:
+        n_real = shape.n_nodes
+        ei = rng.integers(0, n_real, size=(2, shape.n_edges))
+        mask = np.ones(n_real, dtype=bool)
+    pad_e = e - ei.shape[1]
+    check(n > n_real or pad_e == 0, f"gnn {shape.name}: no padding node")
+    pad = n_real + np.arange(pad_e) % max(n - n_real, 1)
+    ei = np.concatenate([ei, np.stack([pad, pad])], axis=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feat = torch.randn((n, shape.d_feat), generator=gen, device="cuda")
+    labels = torch.randint(0, n_classes, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    label_mask = np.zeros(n, dtype=bool)
+    label_mask[:n_real] = mask
+    return (feat, torch.from_numpy(ei.astype(np.int32)).cuda(), labels,
+            torch.from_numpy(label_mask).cuda(), extra)
+
+
+def run_gnn(shape_name):
+    """gatedgcn at 16 layers, d = 70, 47 classes, through ``get_api``:
+    5 AdamW steps on one shape's padded graph; two forwards bitwise
+    equal, the 4-layer checkpoint groups bitwise a run without them;
+    ``full_graph_sm`` also against the CPU."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.models.api import get_api
+    from repro_torch.train.optimizer import make_train_step, opt_init
+
+    t0 = _phase_start()
+    cfg = get_arch("gatedgcn")
+    api = get_api(cfg)
+    shape = cfg.shape(shape_name)
+    specs = api.input_specs(shape)
+    n, df = specs["node_feat"].shape
+    e = specs["edge_index"].shape[1]
+    feat, ei, labels, mask, extra = _gnn_graph(shape, n, e, cfg.n_classes,
+                                               seed=0)
+    batch = {"node_feat": feat, "edge_index": ei, "labels": labels,
+             "label_mask": mask}
+    model, _ = api.init(torch.Generator(device="cuda").manual_seed(0),
+                        d_feat=df)
+    res = {"nodes": n, "edges": e, "d_feat": df,
+           "labelled_nodes": int(mask.sum()),
+           **{k: v for k, v in extra.items() if k != "graph_ids"}}
+    with torch.no_grad():
+        f1 = gnn.forward(model, feat, ei, cfg)
+        f2 = gnn.forward(model, feat, ei, cfg)
+    check(bool(torch.isfinite(f1).all()) and torch.equal(f1, f2),
+          f"gnn {shape_name}: two forwards differ")
+    res["forward_bitwise_repeatable"] = True
+    if shape_name == "full_graph_sm":
+        cpu = _cpu_model(model)
+        with torch.no_grad():
+            want = gnn.forward(cpu, feat.cpu(), ei.cpu(), cfg)
+        err = _max_err(f1, want)
+        scale = float(want.abs().max())
+        check(err <= GNN_TOL * scale,
+              f"gnn {shape_name}: card vs CPU {err} (largest {scale})")
+        res["vs_cpu"] = {"max_abs_err": err, "max_abs_logit": scale,
+                         "tolerance": GNN_TOL * scale}
+        del cpu
+    if "graph_ids" in extra:
+        with torch.no_grad():
+            pooled = gnn.batched_graph_forward(
+                model, feat, ei, torch.from_numpy(extra["graph_ids"]).cuda(),
+                cfg, extra["graphs"])
+        check(pooled.shape == (extra["graphs"], cfg.n_classes) and
+              bool(torch.isfinite(pooled).all()),
+              f"gnn {shape_name}: graph readout {tuple(pooled.shape)}")
+    # checkpointed groups of 4 against no checkpoint: loss and grads
+    out = []
+    for remat in (4, 0):
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = gnn.loss_fn(model, batch, cfg, remat_group=remat)
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in model.parameters()],
+                    torch.cuda.max_memory_allocated()))
+        for p in model.parameters():
+            p.grad = None
+    check(torch.equal(out[0][0], out[1][0]) and
+          all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1])),
+          f"gnn {shape_name}: checkpointed groups differ from none")
+    res["checkpoint_groups_bitwise"] = True
+    res["max_memory_allocated_bytes_remat"] = {"4": out[0][2],
+                                               "none": out[1][2]}
+    del out
+    step = make_train_step(api.step_fn(shape), base_lr=GNN_LR)
+    opt = opt_init(model)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(GNN_STEPS):
+        t = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"gnn {shape_name}: losses {losses}")
+    res.update(losses=losses, step_s=step_s,
+               median_step_s_after_first=statistics.median(step_s[1:]),
+               steps_max_memory_allocated_bytes=
+               torch.cuda.max_memory_allocated())
+    emit("gnn", model="gatedgcn", shape=shape_name, n_layers=cfg.n_layers,
+         d_hidden=cfg.d_hidden, n_classes=cfg.n_classes,
+         params=sum(p.numel() for p in model.parameters()),
+         optimizer="adamw", base_lr=GNN_LR, **res, **_phase_end(t0))
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+
+def run_phi3_serving(corpus):
+    """phi3-medium-14b at all 40 layers, bf16, random weights from a
+    seeded generator, behind an ``Engine`` of 8 slots x 4096 positions:
+    the 8 serving prompts as one batch, 16 new tokens each."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, EngineConfig
+
+    t0 = _phase_start()
+    cfg = get_arch("phi3-medium-14b")
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "phi3_serving: parameter count")
+    eng = Engine(cfg, model, EngineConfig(
+        max_batch=SERVE_MAX_BATCH, max_seq_len=SERVE_MAX_SEQ,
+        max_new_tokens=16, compute_dtype=torch.bfloat16))
+    fa_before = (fa_ops.launch_count(), fa_ops.bwd_launch_count())
+    _, prompts, lengths = _serve_prompts(eng, corpus, "phi3_serving")
+    prefill_t, decode_t = _launch_timers(eng)
+    before = dict(eng.stats)
+    answers = eng.generate_batch(prompts)
+    stats = {k: eng.stats[k] - before[k] for k in before}
+    check(len(answers) == len(prompts) and
+          stats["prefill_launches"] < stats["prefill_prompts"],
+          f"phi3_serving: stats {stats}")
+    # decode at position n against prefill of the n + 1 tokens
+    ids = eng.tok.encode(prompts[3], add_special=True)[:301]
+    ids = torch.from_numpy(ids.astype(np.int64))[None].cuda()
+    with torch.inference_mode():
+        _, cache = T.prefill(model, ids[:, :300], cfg, max_len=301,
+                             compute_dtype=torch.bfloat16)
+        dec, _ = T.decode_step(model, ids[:, 300:], cache, 300, cfg,
+                               compute_dtype=torch.bfloat16)
+        ref, _ = T.prefill(model, ids, cfg, compute_dtype=torch.bfloat16)
+    del cache
+    dec_diff = float((dec.float() - ref.float()).abs().max())
+    dec_scale = float(ref.float().abs().max())
+    check(bool(torch.isfinite(dec.float()).all()) and
+          dec_diff <= DECODE_REL_TOL * dec_scale,
+          f"phi3_serving: decode vs prefill differ by {dec_diff} "
+          f"(largest |logit| {dec_scale})")
+    profile = _decode_profile(model, cfg, eng, 3000)
+    kv_bytes = sum(c.numel() * c.element_size() for c in eng.caches.values())
+    weight_bytes = _weight_bytes(model)
+    bound_ms = (weight_bytes + kv_bytes) / MEM_BYTES_PER_S * 1e3
+    full = [r["ms"] for r in decode_t.records
+            if r["live_slots"] == SERVE_MAX_BATCH]
+    check(bool(full), "phi3_serving: no decode step with 8 live slots")
+    check(fa_before == (fa_ops.launch_count(), fa_ops.bwd_launch_count()),
+          "phi3_serving: flash_attention launched on the serving path")
+    median_decode = statistics.median(full)
+    emit("phi3_serving", model=cfg.name, n_layers=cfg.n_layers,
+         params=n_params, weight_bytes_bf16=sum(
+             p.numel() * p.element_size() for p in model.parameters()),
+         compute_dtype="bfloat16", init_s=init_s,
+         engine={"max_batch": SERVE_MAX_BATCH, "max_seq_len": SERVE_MAX_SEQ,
+                 "max_new_tokens": 16},
+         prompt_tokens=lengths, stats=stats,
+         prefill_per_bucket=_per_bucket(prefill_t.records),
+         decode_step_ms_8_live={"median": median_decode, "n": len(full)},
+         decode_step_bound_ms=bound_ms,
+         decode_step_bound_by="bytes (bf16 weights without the embedding "
+                              "table + K/V at max_seq_len)",
+         decode_step_bound_share=bound_ms / median_decode,
+         decode_vs_prefill={"position": 300, "max_abs_diff": dec_diff,
+                            "max_abs_logit": dec_scale,
+                            "tolerance": DECODE_REL_TOL * dec_scale},
+         decode_profile=profile, kv_cache_bytes=kv_bytes,
+         flash_attention_launches=0, **_phase_end(t0))
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_phi3_train():
+    """phi3-medium-14b at full width, 4 layers, l = 4096: 5 AdamW steps
+    of 2 sequences in 2 microbatches, bf16 compute, on one fixed batch;
+    the attention kernels at its shape (hq = 40, hkv = 10, d = 128)
+    against the plain version, timed."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.optimizer import make_train_step, opt_init
+
+    t0 = _phase_start()
+    cfg = replace(get_arch("phi3-medium-14b"), n_layers=PHI3_TRAIN_LAYERS)
+    b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "phi3_train: parameter count")
+    batch = synthetic_lm_batches(cfg.vocab_size, b, l, seed=0)(0)
+    n_mb = 2
+    step = make_train_step(lambda m, bt: loss_fn(m, bt, cfg),
+                           n_microbatches=n_mb)
+    opt = opt_init(model)
+    losses, step_s = [], []
+
+    def run():
+        nonlocal model, opt
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            model, opt, m = step(model, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    path = PathLaunches()
+    fa_ref.reset_call_count()
+    path.drive(run)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(path.counts, attention_ref=fa_ref.call_count())
+    del model, opt
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phi3_train: losses {losses}")
+    for pass_ in ("fwd", "bwd"):
+        check(launches[f"flash_attention_{pass_}"] > 0 and
+              launches[f"flash_attention_{pass_}_fp32"] == 0,
+              f"phi3_train: {pass_} launches by route {launches}: the bf16 "
+              f"step must run the tensor-core kernels only")
+    check(launches["attention_ref"] == 0,
+          "phi3_train: the plain attention ran on the card")
+    case = attention_case(b // n_mb, cfg.n_heads, cfg.n_kv_heads, l, l,
+                          cfg.d_head, True, torch.bfloat16, seed=43,
+                          timed=True)
+    med = statistics.median(step_s[1:])
+    tokens = b * l
+    pairs = l * (l + 1) // 2
+    model_flop = 3.0 * (2.0 * _matmul_params(cfg) * tokens +
+                        4.0 * b * cfg.n_heads * cfg.d_head * pairs *
+                        cfg.n_layers)
+    emit("phi3_train", model=cfg.name,
+         reduced={"n_layers": [40, PHI3_TRAIN_LAYERS]}, params=n_params,
+         param_bytes_fp32_with_grads_and_moments=16 * n_params,
+         batch=b, seq_len=l, n_microbatches=n_mb, optimizer="adamw",
+         compute_dtype="bfloat16", steps=TRAIN_STEPS, init_s=init_s,
+         losses=losses, step_s=step_s, median_step_s_after_first=med,
+         tokens_per_s=tokens / med, model_flop_per_s=model_flop / med,
+         steps_max_memory_allocated_bytes=peak, launches=launches,
+         attention_case=case, **_phase_end(t0))
+    return launches, case
+
+
+def run_new_families(corpus):
+    """The RecSys and GNN families and phi3-medium (phase 12), the
+    kernels' counters read around each: only ``phi3_train`` launches
+    one (``flash_attention``)."""
+    families = PathLaunches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("families_start",
+         memory_allocated_bytes=torch.cuda.memory_allocated())
+    for name in RECSYS_ARCHS:
+        families.drive(lambda: run_recsys(name))
+    for shape in ("full_graph_sm", "molecule", "minibatch_lg"):
+        families.drive(lambda: run_gnn(shape))
+    families.drive(lambda: run_phi3_serving(corpus))
+    check(not any(families.counts.values()),
+          f"recsys, gnn and phi3_serving launched {families.counts}: none "
+          f"of them runs a kernel of the port")
+    return run_phi3_train()
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3998,6 +4644,7 @@ def main() -> int:
     moe_ref_path = PathLaunches()
     moe_ref_path.drive(run_moe_reference)
     moe_train_launches, moe_fa_case = run_moe_train()
+    phi3_launches, phi3_fa_case = run_new_families(corpus)
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -4015,16 +4662,18 @@ def main() -> int:
                     "composition_device_ms")
 
     def later(name):
-        """The launches of the lifecycle, live-day, train_resume and MoE
-        phases, each read by its ``PathLaunches`` (``moe_serving``: the
-        MoE summarizer's and LM reader's runs; its engine and maverick
-        runs launch none of these kernels, checked for attention)."""
+        """The launches of the lifecycle, live-day, train_resume, MoE and
+        phi3_train phases, each read by its ``PathLaunches``
+        (``moe_serving``: the MoE summarizer's and LM reader's runs; its
+        engine and maverick runs launch none of these kernels, checked
+        for attention)."""
         return {"live": {"launches": live_launches[name]},
                 "lifecycle": {"launches": life_launches[name]},
                 "train_resume": {"launches": resume_launches[name]},
                 "moe_serving": {"launches": moe_rag_launches[name]},
                 "moe_reference": {"launches": moe_ref_path.counts[name]},
-                "moe_train": {"launches": moe_train_launches[name]}}
+                "moe_train": {"launches": moe_train_launches[name]},
+                "phi3_train": {"launches": phi3_launches[name]}}
 
     def entry(name, replaces, main_case, deploy_case, n_launches,
               source=None, extra=(), **more):
@@ -4055,13 +4704,13 @@ def main() -> int:
                 "shape": case["shape"],
                 **later(f"flash_attention_{pass_}{suffix}")}
 
-    def moe_fa(pass_):
-        """The MoE training shape's case (hq = hkv = 16), held and timed
-        in ``moe_train``."""
-        t = moe_fa_case["timing"]
-        return {"shape": moe_fa_case["shape"],
-                "max_abs_err": moe_fa_case["out_max_abs_err"]
-                if pass_ == "fwd" else moe_fa_case["grad_max_abs_err"],
+    def train_fa(case, pass_):
+        """A training shape's case (``moe_train``: hq = hkv = 16;
+        ``phi3_train``: hq = 40, hkv = 10), held and timed there."""
+        t = case["timing"]
+        return {"shape": case["shape"],
+                "max_abs_err": case["out_max_abs_err"]
+                if pass_ == "fwd" else case["grad_max_abs_err"],
                 **{k: t[f"{pass_}_{k}"] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "tflop_per_s", "bound_share")}}
@@ -4134,7 +4783,8 @@ def main() -> int:
         # launches: the bf16 training path's (5 steps), on the tensor
         # cores; the fp32 FMA kernels' from train_reference's card steps
         *(dict(fa_entry(fa_main[torch.bfloat16], train_launches, pass_),
-               moe_train_shape=moe_fa(pass_))
+               moe_train_shape=train_fa(moe_fa_case, pass_),
+               phi3_train_shape=train_fa(phi3_fa_case, pass_))
           for pass_ in ("fwd", "bwd")),
         *(fa_entry(fa_main[torch.float32], fp32_launches, pass_, "_fp32")
           for pass_ in ("fwd", "bwd")),

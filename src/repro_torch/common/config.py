@@ -5,16 +5,17 @@ because snapshots carry the config as a plain dict (``EraGraph.
 state_dict()["cfg"]``) and ``EraRAG.from_state`` rebuilds it with
 ``EraRAGConfig(**cfg)``, validated identically.
 
-``ShapeSpec``, ``ArchConfig``, ``MoEConfig`` and ``LMConfig`` carry
-every field of the JAX package's classes, so a config converts field by
-field.  Only dense LMs run here: a ``moe`` config builds, and the model
-raises ``not_ported`` for it.
+``ShapeSpec``, ``ArchConfig``, ``MoEConfig``, ``LMConfig``,
+``GNNConfig`` and ``RecSysConfig`` carry every field of the JAX
+package's classes, with its ``reduced()``, ``param_count()`` and
+``to_json()``, so a config converts field by field.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -122,9 +123,15 @@ class EraRAGConfig:
         return dataclasses.replace(self, s_min=lo, s_max=hi)
 
 
+def _asdict(obj) -> Dict[str, Any]:
+    d = dataclasses.asdict(obj)
+    d["__class__"] = type(obj).__name__
+    return d
+
+
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell (the LM fields are the ones used here)."""
+    """One input-shape cell (arch family defines which fields matter)."""
 
     name: str
     kind: str  # training | inference-prefill | inference-decode |
@@ -145,6 +152,22 @@ class ShapeSpec:
     batch: int = 0
     n_candidates: int = 0
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("inference-decode", "long-context-decode")
+
+    @property
+    def is_prefill(self) -> bool:
+        return self.kind == "inference-prefill"
+
+    @property
+    def is_training(self) -> bool:
+        return self.kind in ("training", "sampled-training", "full-batch",
+                             "full-batch-large", "batched-small-graphs")
+
+    def to_json(self) -> Dict[str, Any]:
+        return _asdict(self)
+
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -154,6 +177,12 @@ class ArchConfig:
     family: str = ""  # lm-dense | lm-moe | gnn | recsys
     source: str = ""  # citation tag, e.g. "arXiv:2407.21783; unverified"
     shapes: Tuple[ShapeSpec, ...] = ()
+
+    def reduced(self) -> "ArchConfig":  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def to_json(self) -> str:
+        return json.dumps(_asdict(self), default=str, indent=2)
 
     def shape(self, name: str) -> ShapeSpec:
         for s in self.shapes:
@@ -225,6 +254,18 @@ class LMConfig(ArchConfig):
         total += n_dense * (attn + dense_ffn + norms)
         return total
 
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        n_moe = self.n_layers // self.moe_every
+        full = self.param_count()
+        routed_all = n_moe * m.n_experts * 3 * d * m.d_ff_expert
+        routed_act = n_moe * m.top_k * 3 * d * m.d_ff_expert
+        return full - routed_all + routed_act
+
     def reduced(self) -> "LMConfig":
         kw = dict(
             n_layers=2,
@@ -244,3 +285,63 @@ class LMConfig(ArchConfig):
                 d_ff_expert=32,
             )
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class GNNConfig(ArchConfig):
+    n_layers: int = 0
+    d_hidden: int = 0
+    aggregator: str = "gated"
+    d_edge: int = 0
+    n_classes: int = 40
+    residual: bool = True
+    norm: str = "layer"  # batch-norm in the paper; layer-norm here
+
+    def reduced(self) -> "GNNConfig":
+        return dataclasses.replace(self, n_layers=2, d_hidden=16)
+
+    def param_count(self) -> int:
+        """The layers' A..E projections and two norms each (the
+        reference's count: encoders and head left out)."""
+        d = self.d_hidden
+        per_layer = 5 * d * d + 5 * d
+        return self.n_layers * per_layer
+
+
+@dataclass(frozen=True)
+class RecSysConfig(ArchConfig):
+    n_dense: int = 0
+    n_sparse: int = 0
+    embed_dim: int = 0
+    vocab_sizes: Tuple[int, ...] = ()   # per sparse field
+    mlp_dims: Tuple[int, ...] = ()
+    interaction: str = "fm"             # fm | cross | augru | multi-interest
+    n_cross_layers: int = 0
+    # DIEN
+    seq_len: int = 0
+    gru_dim: int = 0
+    # MIND
+    n_interests: int = 0
+    capsule_iters: int = 0
+
+    def reduced(self) -> "RecSysConfig":
+        return dataclasses.replace(
+            self,
+            embed_dim=min(self.embed_dim, 8),
+            vocab_sizes=tuple(min(v, 128) for v in self.vocab_sizes),
+            mlp_dims=tuple(min(m, 32) for m in self.mlp_dims),
+            seq_len=min(self.seq_len, 8) if self.seq_len else 0,
+            gru_dim=min(self.gru_dim, 16) if self.gru_dim else 0,
+        )
+
+    def param_count(self) -> int:
+        """The embedding rows (unpadded) and a dense-input MLP (the
+        reference's count, whatever the interaction)."""
+        emb = sum(self.vocab_sizes) * self.embed_dim
+        mlp_in = self.n_dense + self.n_sparse * self.embed_dim
+        mlp = 0
+        prev = mlp_in
+        for m in self.mlp_dims:
+            mlp += prev * m + m
+            prev = m
+        return emb + mlp

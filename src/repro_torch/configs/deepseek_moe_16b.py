@@ -4,9 +4,11 @@
 2 shared + 64 routed experts, top-6 fine-grained.
 """
 from repro_torch.common.config import LMConfig, MoEConfig
+from repro_torch.common.registry import register_arch
 from repro_torch.configs.shapes import LM_SHAPES
 
 
+@register_arch("deepseek-moe-16b")
 def deepseek_moe_16b() -> LMConfig:
     return LMConfig(
         name="deepseek-moe-16b",

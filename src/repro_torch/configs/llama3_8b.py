@@ -3,9 +3,11 @@
 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=128256.
 """
 from repro_torch.common.config import LMConfig
+from repro_torch.common.registry import register_arch
 from repro_torch.configs.shapes import LM_SHAPES
 
 
+@register_arch("llama3-8b")
 def llama3_8b() -> LMConfig:
     return LMConfig(
         name="llama3-8b",

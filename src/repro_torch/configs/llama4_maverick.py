@@ -6,9 +6,11 @@ matches the released model's ~400B total / ~17B active split; each
 block is [dense, moe]).
 """
 from repro_torch.common.config import LMConfig, MoEConfig
+from repro_torch.common.registry import register_arch
 from repro_torch.configs.shapes import LM_SHAPES
 
 
+@register_arch("llama4-maverick-400b-a17b")
 def llama4_maverick() -> LMConfig:
     return LMConfig(
         name="llama4-maverick-400b-a17b",

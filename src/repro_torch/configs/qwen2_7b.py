@@ -3,9 +3,11 @@
 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064, QKV bias.
 """
 from repro_torch.common.config import LMConfig
+from repro_torch.common.registry import register_arch
 from repro_torch.configs.shapes import LM_SHAPES
 
 
+@register_arch("qwen2-7b")
 def qwen2_7b() -> LMConfig:
     return LMConfig(
         name="qwen2-7b",

@@ -49,7 +49,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
 
 
 def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
-              launches: dict = None, expect: tuple = ()) -> dict:
+              launches: dict = None, expect: tuple = (),
+              trace: dict = None) -> dict:
     """Device milliseconds per call of each kernel whose name matches
     ``pattern`` (its first group names it) that ``fn`` launches, from
     ``torch.profiler`` over ``reps`` calls after a warm-up (empty if the
@@ -63,18 +64,29 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
     device time at all, or none for a kernel named in ``expect``, is
     taken again, up to five times, each with twice the calls of the one
     before (a step of a few short kernels can lose every record of
-    one)."""
+    one).  A ``trace`` dict gets the kept step's window on the host
+    clock (``window_us``) and each of its records of such a kernel
+    (``records``: name, start and end in microseconds from the window's
+    start, and whether it lies inside the window); the host's activity
+    is then profiled too, for the step's own record."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    activities = [ProfilerActivity.CUDA]
+    if trace is not None:
+        activities.append(ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
     for attempt in range(5):
         calls = reps << attempt
-        out, kept = {}, []
-        with profile(activities=[ProfilerActivity.CUDA],
+        out, kept, events = {}, [], []
+
+        def ready(p):
+            kept.extend(p.key_averages())
+            if trace is not None:
+                events.extend(p.events())
+        with profile(activities=activities,
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1),
-                     on_trace_ready=lambda p: kept.extend(p.key_averages())
-                     ) as prof:
+                     on_trace_ready=ready) as prof:
             for _ in range(2):
                 for _ in range(calls):
                     fn()
@@ -90,6 +102,8 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
                     per_call / 1e3
         if out and all(k in out for k in expect):
             break
+    if trace is not None:
+        _trace_records(events, pattern, trace)
     if launches is not None:
         for e in kept:
             name = re.search(pattern, e.key)
@@ -97,6 +111,23 @@ def kernel_ms(fn, reps: int = 5, pattern: str = PORT_KERNEL,
                 launches[name.group(1)] = \
                     launches.get(name.group(1), 0) + e.count / calls
     return out
+
+
+def _trace_records(events, pattern: str, trace: dict) -> None:
+    """Fill ``trace`` (see ``kernel_ms``) from a kept step's events."""
+    steps = [e.time_range for e in events
+             if e.name.startswith("ProfilerStep")]
+    kept = max(steps, key=lambda r: r.start) if steps else None
+    w0 = kept.start if kept else 0.0
+    w1 = kept.end if kept else float("inf")
+    trace["window_us"] = w1 - w0
+    trace["records"] = [
+        {"name": name.group(1), "start_us": e.time_range.start - w0,
+         "end_us": e.time_range.end - w0,
+         "in_window": w0 <= e.time_range.start and e.time_range.end <= w1}
+        for e in events
+        if e.device_type != torch.autograd.DeviceType.CPU
+        and (name := re.search(pattern, e.name))]
 
 
 def device_ms(fn, reps: int = 5) -> float:

@@ -14,16 +14,21 @@ layer ``i * block_size + j``.  torch cannot reproduce
 ``jax.random.PRNGKey``, so the parity tests draw the weights in JAX
 and carry them over here; ``params_to_numpy(model, grads=True)`` brings
 gradients back in the same tree for comparison.
+
+The RecSys and GNN families keep the reference's tree as it is, in a
+``ParamTree``: lists of MLP layers, the GNN's stacked ``layers``,
+DeepFM's scalar ``bias``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.common.config import LMConfig
+from repro_torch.common.config import ArchConfig, LMConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import LM, block_size, n_blocks
 
 Leaf = Tuple[Tuple, List[torch.nn.Parameter], bool]
@@ -68,13 +73,26 @@ def _at(tree: Dict, path: Tuple):
     return node
 
 
+def _tree_of_numpy(tree: Any, device: torch.device, dtype) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_of_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_of_numpy(v, device, dtype) for v in tree]
+    a = np.array(tree, copy=True)
+    t = torch.from_numpy(a).to(device)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
 @torch.no_grad()
-def params_from_numpy(tree: Dict, cfg: LMConfig,
+def params_from_numpy(tree: Dict, cfg: ArchConfig,
                       device: Optional[torch.device] = None,
-                      dtype=torch.float32) -> LM:
-    """An ``LM`` holding the weights of a JAX parameter tree (numpy
-    leaves), on ``device`` (default ``cuda``)."""
+                      dtype=torch.float32) -> Union[LM, ParamTree]:
+    """The port's weights holding a JAX parameter tree (numpy leaves),
+    on ``device`` (default ``cuda``): an ``LM`` for an ``LMConfig``, a
+    ``ParamTree`` of the same tree for the RecSys and GNN families."""
     device = resolve_device(device)
+    if not isinstance(cfg, LMConfig):
+        return ParamTree(_tree_of_numpy(tree, device, dtype))
     model = LM(cfg, dtype, device)
     if len(tree["layers"]) != block_size(cfg):
         raise ValueError(f"{len(tree['layers'])} sub-layers a block for "
@@ -99,7 +117,8 @@ def params_from_numpy(tree: Dict, cfg: LMConfig,
     return model
 
 
-def params_to_numpy(model: LM, *, grads: bool = False) -> Dict:
+def params_to_numpy(model: Union[LM, ParamTree], *,
+                    grads: bool = False) -> Dict:
     """The JAX parameter tree of ``model``'s weights (or, with
     ``grads``, of their ``.grad``s) as fp32 numpy arrays."""
     def fn(p):
@@ -108,5 +127,7 @@ def params_to_numpy(model: LM, *, grads: bool = False) -> Dict:
             raise ValueError("a parameter has no gradient")
         return t.detach().to("cpu", torch.float32).numpy()
 
+    if isinstance(model, ParamTree):
+        return model.tree(fn)
     return param_tree(model, lambda ps, stacked: np.stack(
         [fn(p) for p in ps]) if stacked else fn(ps[0]))

@@ -110,6 +110,45 @@ class _Weights(nn.Module):
         return {n: p.to(dtype) for n, p in self.named_parameters()}
 
 
+class ParamTree(nn.Module):
+    """A parameter tree of the JAX package (a dict of arrays, dicts and
+    lists) as a module, read as the reference reads its tree:
+    ``tree["mlp"][0]["w"]``.  A dict is a ``ParamTree`` (children in
+    sorted key order, ``jax.tree_util``'s), a list an ``nn.ModuleList``,
+    a leaf an ``nn.Parameter`` (a 0-d one for a scalar)."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for key in sorted(tree):
+            child = self._child(tree[key])
+            if isinstance(child, nn.Parameter):
+                self.register_parameter(key, child)
+            else:
+                self.add_module(key, child)
+
+    @staticmethod
+    def _child(v):
+        if isinstance(v, dict):
+            return ParamTree(v)
+        if isinstance(v, (list, tuple)):
+            return nn.ModuleList(ParamTree._child(x) for x in v)
+        return nn.Parameter(v)
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def tree(self, leaf) -> Dict:
+        """The reference's tree with each parameter ``leaf(p)``."""
+        def walk(m):
+            if isinstance(m, ParamTree):
+                return {k: walk(v) for k, v in
+                        sorted({**m._parameters, **m._modules}.items())}
+            if isinstance(m, nn.ModuleList):
+                return [walk(x) for x in m]
+            return leaf(m)
+        return walk(self)
+
+
 class Attention(_Weights):
     """wq (d, hq*hd), wk, wv (d, hkv*hd), wo (hq*hd, d); with
     ``qkv_bias`` also bq, bk, bv."""

@@ -118,6 +118,47 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+def param_axes(cfg: LMConfig) -> Dict:
+    """The reference's logical axes of its parameter tree, as plain
+    data: the ``layers`` leaves, stacked over blocks, lead with
+    ``"layers"``."""
+    def attn():
+        ax = {"wq": ("embed", "qkv_fused"), "wk": ("embed", "qkv_fused"),
+              "wv": ("embed", "qkv_fused"), "wo": ("qkv_fused", "embed")}
+        if cfg.qkv_bias:
+            ax.update(bq=("qkv_fused",), bk=("qkv_fused",),
+                      bv=("qkv_fused",))
+        return ax
+
+    def swiglu():
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+
+    def moe():
+        ax = {"router": ("embed", "experts"),
+              "w_gate": ("experts", "expert_embed", "expert_mlp"),
+              "w_up": ("experts", "expert_embed", "expert_mlp"),
+              "w_down": ("experts", "expert_mlp", "expert_embed")}
+        if cfg.moe.n_shared:
+            ax["shared"] = swiglu()
+        return ax
+
+    def stacked(tree):
+        return {k: stacked(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else ("layers",) + tree
+
+    bs = block_size(cfg)
+    sub = [{"attn": attn(), "ln1": ("embed",), "ln2": ("embed",),
+            "ffn": moe() if cfg.is_moe and j == bs - 1 else swiglu()}
+           for j in range(bs)]
+    axes = {"embed": ("vocab", "embed"),
+            "layers": tuple(stacked(a) for a in sub),
+            "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -211,6 +252,14 @@ def make_kv_cache(cfg: LMConfig, batch: int, max_len: int,
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_axes(cfg: LMConfig) -> Dict:
+    """The reference's logical axes of a cache's K and V (its cache is
+    a tuple of ``block_size`` such pairs over blocks; here one pair
+    over every layer)."""
+    ax = ("layers", "batch", "kv_heads", "kv_seq", None)
+    return {"k": ax, "v": ax}
 
 
 def _cached_backbone(model: LM, x: torch.Tensor, cfg: LMConfig,

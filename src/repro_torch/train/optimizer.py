@@ -258,6 +258,18 @@ def opt_update(model: torch.nn.Module, grads: List[torch.Tensor], state,
                             update_dtype=update_dtype)
 
 
+def microbatch(batch: Any, i: int, n: int) -> Any:
+    """Slice ``i`` of ``n`` of every leaf of a batch (dicts, lists and
+    tuples of arrays), each cut along its own leading axis into equal
+    slices, as the reference's ``dynamic_slice_in_dim`` cuts them."""
+    if isinstance(batch, dict):
+        return {k: microbatch(v, i, n) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(microbatch(v, i, n) for v in batch)
+    size = batch.shape[0] // n
+    return batch[i * size:(i + 1) * size]
+
+
 def make_train_step(loss_fn: Callable, *,
                     lr_schedule: Optional[Callable[[int], float]] = None,
                     base_lr: float = 3e-4, n_microbatches: int = 1,
@@ -266,11 +278,11 @@ def make_train_step(loss_fn: Callable, *,
     """(model, opt_state, batch) -> (model, opt_state, metrics), with
     ``loss_fn(model, batch) -> (loss, metrics)``.
 
-    ``n_microbatches > 1`` splits the batch's leading axis into equal
-    slices, runs forward and backward on each in turn (saved activations
-    bound to one slice), sums their gradients in ``accum_dtype`` (each
-    slice's cast to it; in ``.grad`` itself where that is its dtype) and
-    divides the sum by the count; the reported loss and metrics are the
+    ``n_microbatches > 1`` splits every batch leaf's leading axis into
+    equal slices (``microbatch``), runs forward and backward on each in
+    turn (saved activations bound to one slice), sums their gradients
+    in ``accum_dtype`` (each slice's cast to it; in ``.grad`` itself
+    where that is its dtype) and divides the sum by the count; the reported loss and metrics are the
     slices' means.  One microbatch keeps its gradients as they are.  The
     update runs in ``accum_dtype`` too (Adafactor's ``update_dtype``).
     The learning rate is ``lr_schedule(opt_state.step)``, read before
@@ -292,10 +304,8 @@ def make_train_step(loss_fn: Callable, *,
         else:
             losses, ms = [], []
             acc: List[Optional[torch.Tensor]] = [None] * len(params)
-            mb_size = len(batch["tokens"]) // n_microbatches
             for i in range(n_microbatches):
-                mb = {k: x[i * mb_size:(i + 1) * mb_size]
-                      for k, x in batch.items()}
+                mb = microbatch(batch, i, n_microbatches)
                 loss_i, m = loss_fn(model, mb)
                 loss_i.backward()       # sums into .grad
                 losses.append(loss_i.detach())

@@ -1525,3 +1525,205 @@ def test_adafactor_on_card_matches_cpu(cuda):
                                    states[1].v])):
         assert float((b.cpu() - a).abs().max()) <= 1e-6 * max(
             1.0, float(a.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the RecSys and GNN families, phi3-medium
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("deepfm", "dcn-v2", "dien", "mind")
+RECSYS_TOL = 1e-5   # card vs CPU, the largest |out| at least 100x it
+GNN_TOL = 2e-2      # card vs CPU of the largest |logit|: bf16 streams
+# MIND's N(0, 0.01^2) table puts its reduced scores near 1e-5 and its
+# in-batch loss at ln(b) whatever the logits: scaled to unit variance,
+# both are O(1) and the comparisons hold them
+MIND_TABLE_SCALE = 100.0
+
+
+def _arch_pair(name, cuda, **replace):
+    """(reduced config, weights on the card, the same on the CPU)."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.api import get_api
+    from repro_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), **replace)
+    model, _ = get_api(cfg).init(torch.Generator().manual_seed(0))
+    tree = params_to_numpy(model)
+    if name == "mind":
+        tree["table"] = tree["table"] * np.float32(MIND_TABLE_SCALE)
+    return cfg, params_from_numpy(tree, cfg, device=cuda), \
+        params_from_numpy(tree, cfg, device="cpu")
+
+
+def _recsys_close(got, want):
+    """``got`` (on the card) within RECSYS_TOL of ``want``, whose
+    largest magnitude must be at least 100x that."""
+    want = want.detach()
+    scale = float(want.abs().max())
+    assert scale >= 100 * RECSYS_TOL, scale
+    err = float((got.detach().cpu() - want).abs().max())
+    assert err <= RECSYS_TOL, (err, scale)
+
+
+@pytest.mark.parametrize("name", RECSYS_ARCHS)
+def test_recsys_on_card_matches_cpu(cuda, name):
+    from repro_torch.models.api import get_api
+
+    cfg, card, cpu = _arch_pair(name, cuda)
+    api = get_api(cfg)
+    for shape in cfg.shapes:
+        step = api.step_fn(shape)
+        batch = api.demo_batch(shape, 1, device="cpu")
+        got = step(card, {k: v.to(cuda) for k, v in batch.items()})
+        want = step(cpu, batch)
+        if shape.kind == "training":
+            _recsys_close(got[0], want[0].detach())
+            got[0].backward()
+            want[0].backward()
+            for (n, a), b in zip(card.named_parameters(),
+                                 cpu.parameters()):
+                assert _rel_fro(a.grad.cpu(), b.grad) <= 1e-4, n
+                a.grad = b.grad = None
+        elif isinstance(want, tuple):
+            assert torch.equal(got[1].cpu(), want[1])
+            _recsys_close(got[0], want[0])
+        else:
+            _recsys_close(got, want)
+
+
+def test_recsys_mind_top_k_ties_on_card(cuda):
+    """1M candidates from the reduced 128-row vocab: the top 100 are
+    exact ties, and the card keeps the CPU's lowest positions."""
+    from repro_torch.models import recsys
+
+    cfg, card, cpu = _arch_pair("mind", cuda)
+    offsets = np.zeros(1, np.int64)
+    g = torch.Generator().manual_seed(3)
+    batch = {"hist": torch.randint(0, 128, (1, cfg.seq_len), generator=g),
+             "hist_len": torch.tensor([cfg.seq_len]),
+             "candidates": torch.randint(0, 128, (1_000_000,),
+                                         generator=g)}
+    with torch.no_grad():
+        vals, ids = recsys.mind_score_candidates(
+            card, {k: v.to(cuda) for k, v in batch.items()}, cfg, offsets)
+        cv, ci = recsys.mind_score_candidates(cpu, batch, cfg, offsets)
+    assert torch.equal(ids.cpu(), ci)
+    assert bool((vals[0, 1:] == vals[0, :-1]).all())       # all tied
+    assert bool((ids[0, 1:] > ids[0, :-1]).all())
+    x = torch.randint(-3, 4, (4, 100_003), generator=g).float()
+    kv, ki = recsys.topk_lowest_index(x.to(cuda), 64)
+    assert torch.equal(ki.cpu(), recsys.topk_lowest_index(x, 64)[1])
+
+
+def _gnn_batch(cfg, n, e, d_feat, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"node_feat": torch.randn((n, d_feat), generator=g),
+            "edge_index": torch.randint(0, n, (2, e), generator=g,
+                                        dtype=torch.int32),
+            "labels": torch.randint(0, cfg.n_classes, (n,), generator=g,
+                                    dtype=torch.int32),
+            "label_mask": torch.rand((n,), generator=g) < 0.7}
+
+
+def test_gnn_forward_on_card_repeats_bitwise_and_matches_cpu(cuda):
+    from repro_torch.models import gnn
+
+    cfg, card, cpu = _arch_pair("gatedgcn", cuda, n_layers=8)
+    batch = _gnn_batch(cfg, 3000, 20000, 128, 0)
+    on = {k: v.to(cuda) for k, v in batch.items()}
+    with torch.no_grad():
+        a = gnn.forward(card, on["node_feat"], on["edge_index"], cfg)
+        b = gnn.forward(card, on["node_feat"], on["edge_index"], cfg)
+        want = gnn.forward(cpu, batch["node_feat"], batch["edge_index"],
+                           cfg)
+    assert torch.equal(a, b)
+    scale = float(want.abs().max())
+    assert float((a.cpu() - want).abs().max()) <= GNN_TOL * scale
+
+
+def test_gnn_checkpoint_groups_bitwise_on_card(cuda):
+    from repro_torch.models import gnn
+
+    cfg, card, _ = _arch_pair("gatedgcn", cuda, n_layers=8)
+    batch = {k: v.to(cuda) for k, v in
+             _gnn_batch(cfg, 2000, 9000, 128, 1).items()}
+    out = []
+    for remat in (4, 0, 4):
+        loss, _ = gnn.loss_fn(card, batch, cfg, remat_group=remat)
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in card.parameters()]))
+        card.zero_grad(set_to_none=True)
+    for loss, grads in out[1:]:
+        assert torch.equal(loss, out[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, out[0][1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gnn_segment_sum_on_card_repeats_bitwise(cuda, dtype):
+    """Heavy collisions (a hot segment) and empty segments: the
+    fixed-order sum and the gather's backward repeat bitwise, and the
+    sums agree with the CPU's (fp32 sums in one order, rounded once)."""
+    from repro_torch.models import gnn
+
+    g = torch.Generator().manual_seed(2)
+    n, e, d = 5000, 200_000, 70
+    idx = torch.randint(0, n // 2, (e,), generator=g)
+    idx[: e // 4] = 7
+    x = torch.randn((e, d), generator=g).to(dtype)
+    seg_c, seg_g = gnn.segments(idx, n), gnn.segments(idx.to(cuda), n)
+    xg = x.to(cuda).requires_grad_(True)
+    outs = [gnn.segment_sum(xg, seg_g) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    want = gnn.segment_sum(x, seg_c).float()
+    scale = float(want.abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert float((outs[0].cpu().float() - want).abs().max()) <= tol * scale
+    h = torch.randn((n, d), generator=g).to(dtype).to(cuda)
+    grads = []
+    for _ in range(2):
+        hh = h.clone().requires_grad_(True)
+        gnn.gather(hh, seg_g).backward(x.to(cuda))
+        grads.append(hh.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_phi3_attention_shape_on_card(cuda):
+    """phi3-medium's heads (hq = 40 over hkv = 10, d = 128) through the
+    kernels, bf16, against the plain version."""
+    q, k, v, do = _attn_inputs(1, 40, 10, 320, 320, 128, torch.bfloat16,
+                               cuda, 40)
+    tol = FA_TOL[torch.bfloat16]
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, True)
+    want = attention_ref(q, k, v, causal=True).float()
+    assert bool(((o.float() - want).abs() <=
+                 tol["out_abs"] + tol["out_rel"] * want.abs()).all())
+    grads = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    for got, ref_g in zip(grads, attention_grads_ref(q, k, v, do,
+                                                     causal=True)):
+        assert _rel_fro(got, ref_g) <= tol["grad"]
+
+
+def test_phi3_reduced_loss_and_serving_on_card_match_cpu(cuda):
+    """Reduced phi3-medium-14b through ``get_api``: the training loss
+    and the prefill and decode logits, card against CPU in fp32."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+
+    cfg, card, cpu = _arch_pair("phi3-medium-14b", cuda)
+    api = get_api(cfg)
+    shape = cfg.shape("train_4k")
+    batch = api.demo_batch(shape, 0, device="cpu")
+    out = {}
+    for dev, model in ((cuda, card), (torch.device("cpu"), cpu)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = T.loss_fn(model, b, cfg, compute_dtype=torch.float32)
+        logits, cache = T.prefill(model, b["tokens"], cfg, max_len=40,
+                                  compute_dtype=torch.float32)
+        dec, _ = T.decode_step(model, b["labels"][:, -1:], cache, 32, cfg,
+                               compute_dtype=torch.float32)
+        out[dev.type] = [t.detach().float().cpu() for t in
+                         (loss, logits, dec)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
