@@ -207,8 +207,44 @@ package.  Phases, each printing one JSON line:
                  ``flagged_mips_topk`` over the same rows, ids (the
                  rows' flat index as sequence number) and scores
                  bitwise equal; event and device ms of both, by kernel,
-                 and the merge's.  The ``reference`` phase runs again
-                 with ``index_shards=4``, exact and quantized.
+                 and the merge's.
+    ``collective`` two ranks on the card in one gloo group
+                 (``launch/mesh.run_ranks``; the kernels are built
+                 already, the ranks load them).  At 2^22 each rank holds
+                 2 of those 4 slots (2.27 GB) and runs
+                 ``sharded_mips_topk`` and ``sharded_quantized_topk``
+                 (C = 32): the exact ids and scores bitwise the flat
+                 ``flagged_mips_topk``, both routes bitwise the loop
+                 over the same slots, 2 slot launches of each kernel a
+                 call; each rank's event ms of the call, of its scans
+                 and of the gather and merge.  Then ``EraRAG(
+                 ERARAG_DEFAULT, index_shards=4, group=...)`` over a
+                 500-document corpus that both ranks build (a 50 % build
+                 and 5 growth rounds): 64 questions in three modes
+                 through the collective bitwise the loop and (sequence
+                 numbers aside) a flat store, exact and quantized, the
+                 launches counted and each route's batch ms; a reshard
+                 to 8 under the group; the snapshot taken under the
+                 group restored without one, bitwise.  The ranks' hits
+                 must agree; a rank's failure stops both and the script.
+    ``examples`` each ``examples/*_torch.py``'s ``main`` on the card
+                 against a CPU run: quickstart, live_ingest and
+                 rag_serve print the same lines; train_lm at its
+                 defaults (300 steps), then its last checkpoint removed
+                 and ``--resume`` from step 200, the resumed losses
+                 bitwise the unbroken run's, each run's launches counted
+                 (attention on the tensor-core route only, 32 forward
+                 and 16 backward launches a step, the plain version
+                 never), and a 3-step CPU run's model line the same;
+                 its first 3 steps from the same weights on the card
+                 (bf16) and the CPU (fp32), losses within 1e-3, and the
+                 card's step split by the profiler; the attention
+                 kernels at its shape (4, 8, 4, 128, 128, 64) held and
+                 timed; distributed_retrieval at 2 ranks
+                 (card and CPU print the same lines) and at 1 (the
+                 collective off).  Seconds per example.  The
+                 ``reference`` phase then runs again with
+                 ``index_shards=4``, exact and quantized.
 7. ``flash_attention`` the forward and backward kernels against the
                  plain version (``attention_ref`` and autograd through it):
                  output, logsumexp and dQ/dK/dV from a seeded dO at the
@@ -314,9 +350,13 @@ package.  Phases, each printing one JSON line:
                  launches of phases 6c-6e and 6g-6j beside the main
                  path's, and every entry with the launches of
                  ``live_day``, ``lifecycle``, ``train_resume``, the
-                 MoE phases and ``phi3_train``; the bf16 attention
+                 MoE phases and ``phi3_train``, and ``mips_topk``,
+                 ``hamming_topk`` and the rescore with the
+                 ``collective`` ranks' launches; the bf16 attention
                  entries with the MoE and phi3 training shapes' cases
-                 as ``moe_train_shape`` and ``phi3_train_shape``).
+                 as ``moe_train_shape`` and ``phi3_train_shape``, and
+                 the train_lm example's as ``train_lm_example_shape``
+                 beside its runs' launches, ``examples_train_lm``).
 
 Times are CUDA-event medians after a warm-up.  Any failed check raises,
 and the script exits non-zero; the last line of a passing run is
@@ -325,6 +365,7 @@ and the script exits non-zero; the last line of a passing run is
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import statistics
 import subprocess
@@ -2774,16 +2815,17 @@ def run_serving_summarizer(model, cfg):
     return dict(path.counts)
 
 
-def run_sharded_deploy():
-    """2^22 rows hash-routed into 4 slots of one stacked buffer: the
-    per-slot scans plus the merge against ``flagged_mips_topk`` over the
-    same rows, with each row's sequence number its flat index."""
-    from repro_torch.core.store import _bulk_route, _filter_bias, \
-        slot_topk
-    from repro_torch.kernels.mips_topk import ops as mips_ops
-    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
+DEPLOY_SLOTS = 4            # the 2^22 rows' slots (sharded_2_22, collective)
+DEPLOY_K = 8
+DEPLOY_D = 256
 
-    n_slots, k, d = 4, 8, 256
+
+def _deploy_rows():
+    """The 2^22 seeded rows (d = 256 + 3 flags: 10 % dead, 30 % summary)
+    and 64 unit queries of the deployment-size sharded checks, rows
+    1000..1003 copies of row 999 and query 0 equal to it, so that exact
+    ties cross the slots."""
+    d = DEPLOY_D
     gen = torch.Generator(device="cuda").manual_seed(2)
     db = torch.zeros(N_DEPLOY, d + 3, device="cuda")
     db[:, :d] = torch.nn.functional.normalize(
@@ -2799,20 +2841,50 @@ def run_sharded_deploy():
     qd = torch.nn.functional.normalize(
         torch.randn(64, d, device="cuda", generator=gen), dim=1)
     qd[0] = db[999, :d]
-    t0 = time.perf_counter()
+    return db, qd
+
+
+def _deploy_owners():
+    """Each 2^22 row's slot (the store's blake2b routing of ``row<i>``)
+    on the card, and the slots' row counts."""
+    from repro_torch.core.store import _bulk_route
     owners = torch.from_numpy(_bulk_route(
-        [f"row{i}" for i in range(N_DEPLOY)], n_slots)).cuda()
-    route_s = time.perf_counter() - t0
-    counts = torch.bincount(owners, minlength=n_slots).tolist()
-    cap = max(counts)
-    stack = torch.zeros(n_slots, cap, d + 3, device="cuda")
+        [f"row{i}" for i in range(N_DEPLOY)], DEPLOY_SLOTS)).cuda()
+    return owners, torch.bincount(owners, minlength=DEPLOY_SLOTS).tolist()
+
+
+def _deploy_slots(db, owners, slots, cap):
+    """The stacked rows of ``slots`` (each slot's rows in their flat
+    order, padding rows dead) and their sequence plane, each row's
+    sequence number its flat index."""
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    d = DEPLOY_D
+    stack = torch.zeros(len(slots), cap, d + 3, device="cuda")
     stack[..., d] = 1.0                               # padding: dead
-    seq = torch.full((n_slots, cap), mips_ops.SEQ_PAD, dtype=torch.int32,
-                     device="cuda")
-    for s in range(n_slots):
+    seq = torch.full((len(slots), cap), mips_ops.SEQ_PAD,
+                     dtype=torch.int32, device="cuda")
+    for j, s in enumerate(slots):
         rows = torch.nonzero(owners == s).flatten()   # ascending
-        stack[s, :len(rows)] = db[rows]
-        seq[s, :len(rows)] = rows.int()
+        stack[j, :len(rows)] = db[rows]
+        seq[j, :len(rows)] = rows.int()
+    return stack, seq
+
+
+def run_sharded_deploy():
+    """2^22 rows hash-routed into 4 slots of one stacked buffer: the
+    per-slot scans plus the merge against ``flagged_mips_topk`` over the
+    same rows, with each row's sequence number its flat index."""
+    from repro_torch.core.store import _filter_bias, slot_topk
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    from repro_torch.kernels.timing import device_ms, kernel_ms, time_ms
+
+    n_slots, k, d = DEPLOY_SLOTS, DEPLOY_K, DEPLOY_D
+    db, qd = _deploy_rows()
+    t0 = time.perf_counter()
+    owners, counts = _deploy_owners()
+    route_s = time.perf_counter() - t0
+    cap = max(counts)
+    stack, seq = _deploy_slots(db, owners, range(n_slots), cap)
     del owners
     bias = _filter_bias(None)
     q_aug = mips_ops.augment_queries(qd, bias).contiguous()
@@ -2876,6 +2948,473 @@ def run_sharded_deploy():
     torch.cuda.empty_cache()
     emit("sharded_2_22", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the collective query over a process group (two ranks on the card)
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_RANKS = 2
+COLLECTIVE_C = 32           # the quantized collective's coarse width
+COLLECTIVE_DOCS = 500       # the store-level check's corpus
+COLLECTIVE_REPS = 5         # timed query batches a route
+
+
+def _collective_deploy(group):
+    """One rank's share of the 2^22 rows (2 of the 4 slots): the
+    collective exact and quantized scans against the flat scan and the
+    loop route over the same slots, bitwise, with this rank's times."""
+    from repro_torch.common.sharding import stacked_slot_range
+    from repro_torch.core.store import N_FLAGS, _filter_bias, slot_topk
+    from repro_torch.kernels.hamming_topk import ops as ham_ops
+    from repro_torch.kernels.lsh_hash import ops as lsh_ops
+    from repro_torch.kernels.mips_topk import ops as mips_ops
+    from repro_torch.kernels.quantized_scan import ops as quant_ops
+    from repro_torch.kernels.timing import time_ms
+
+    k, d, c = DEPLOY_K, DEPLOY_D, COLLECTIVE_C
+    t0 = time.perf_counter()
+    db, qd = _deploy_rows()
+    owners, counts = _deploy_owners()
+    local = stacked_slot_range(DEPLOY_SLOTS, group.world_size, group.rank)
+    stack, seq = _deploy_slots(db, owners, local, max(counts))
+    bias = _filter_bias(None)
+    flat_v, flat_i = mips_ops.flagged_mips_topk(qd, db, k, bias)
+    spec = quant_ops.QuantSpec(dim=d, n_bits=64, n_flags=N_FLAGS, seed=0)
+    planes = torch.from_numpy(quant_ops.hyperplanes(spec)).cuda()
+    codes = torch.stack([quant_ops.encode_rows(rows[:, :d], rows[:, d:],
+                                               planes, spec)
+                         for rows in stack])
+    del db, owners
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    q_aug = mips_ops.augment_queries(qd, bias).contiguous()
+    qq_aug, q_codes = quant_ops.prepare_queries(qd, bias, planes, spec)
+
+    def exact():
+        return mips_ops.sharded_mips_topk(qd, stack, seq, k, k, bias,
+                                          group=group)
+
+    def quantized():
+        return quant_ops.sharded_quantized_topk(
+            qd, stack, codes, seq, planes, k, k, c, bias, spec,
+            group=group)
+
+    def loop(qa, **quant):
+        parts = [slot_topk(qa, stack[j], seq[j], k,
+                           codes=codes[j] if quant else None, **quant)
+                 for j in range(len(local))]
+        return mips_ops.gather_merge_topk(
+            torch.stack([v for v, _ in parts]),
+            torch.stack([s for _, s in parts]), k, group)
+
+    counters = {"mips_topk": mips_ops.launch_count,
+                "hamming_topk": ham_ops.launch_count,
+                "mips_rescore": mips_ops.rescore_launch_count,
+                "lsh_hash": lsh_ops.launch_count,
+                "collective": mips_ops.collective_launch_count}
+
+    def one_call(fn):
+        before = {n: f() for n, f in counters.items()}
+        out = fn()
+        return out, {n: f() - before[n] for n, f in counters.items()}
+
+    (ev, es), exact_launches = one_call(exact)
+    (qv, qs), quant_launches = one_call(quantized)
+    lv, ls = loop(q_aug)
+    qlv, qls = loop(qq_aug, q_codes=q_codes, n_coarse=c)
+    torch.cuda.synchronize()
+    check(torch.equal(ev, flat_v) and torch.equal(es, flat_i),
+          f"collective 2^22 (rank {group.rank}): the exact collective "
+          f"differs from the flat scan")
+    check(es[0, :5].tolist() == list(range(999, 1004)),
+          "collective 2^22: the planted duplicates out of order")
+    check(torch.equal(ev, lv) and torch.equal(es, ls),
+          "collective 2^22: the exact collective differs from the loop")
+    check(torch.equal(qv, qlv) and torch.equal(qs, qls),
+          "collective 2^22: the quantized collective differs from the "
+          "loop")
+    check(exact_launches["mips_topk"] == len(local) and
+          quant_launches["hamming_topk"] == len(local) and
+          quant_launches["mips_rescore"] == len(local),
+          f"collective 2^22: launches {exact_launches} {quant_launches}")
+    # this rank's times (the other rank shares the card meanwhile)
+    cand = mips_ops.local_slot_scans(q_aug, stack, seq, k)
+    times = {
+        "exact_ms": time_ms(exact),
+        "exact_scans_ms": time_ms(
+            lambda: mips_ops.local_slot_scans(q_aug, stack, seq, k)),
+        "gather_merge_ms": time_ms(
+            lambda: mips_ops.gather_merge_topk(*cand, k, group)),
+        "quantized_ms": time_ms(quantized)}
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
+        qs.tolist(), es.tolist())]))
+    return {"shape": {"b": 64, "n": N_DEPLOY, "d": d + 3, "k": k,
+                      "slots": DEPLOY_SLOTS, "local_slots": list(local),
+                      "slot_rows": counts, "capacity": max(counts),
+                      "c": c},
+            "local_bytes": stack.numel() * 4 + seq.numel() * 4 +
+            codes.numel() * 4,
+            "setup_s": setup_s, "bitwise_equal_flat": True,
+            "bitwise_equal_loop": True, "quantized_recall_at_8": recall,
+            "launches_per_call": {"exact": exact_launches,
+                                  "quantized": quant_launches},
+            **times}
+
+
+def _collective_store(group):
+    """``EraRAG`` on the group at 4 shards over a 500-document corpus,
+    built by every rank: 64-question batches in three modes through the
+    collective against the loop and a flat store, exact and quantized;
+    a reshard to 8 under the group; the snapshot taken under the group
+    restored without one."""
+    from repro_torch.configs.erarag import ERARAG_DEFAULT
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.core.store import VectorStore
+    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.embed.hashing import HashingEmbedder
+
+    corpus = SyntheticCorpus.generate(n_docs=COLLECTIVE_DOCS, n_topics=64,
+                                      seed=0)
+    init, rounds = corpus.growth_rounds(0.5, 5)
+    questions = [qa.question for qa in corpus.qa[:64]]
+    cfg = replace(ERARAG_DEFAULT, index_shards=4)
+    rag = EraRAG(cfg, HashingEmbedder(dim=256), group=group)
+    t0 = time.perf_counter()
+    for docs in [init] + rounds:
+        rag.insert_docs(docs)
+    rag.store.refresh()
+    build_s = time.perf_counter() - t0
+
+    def hits(seqs=True):
+        return {mode: [_bits_key(r.hits, seqs)
+                       for r in rag.query_batch(questions, mode=mode)]
+                for mode in MODES}
+
+    def batch_ms(store, collective):
+        store.collective = collective
+        out = []
+        for _ in range(COLLECTIVE_REPS):
+            t = time.perf_counter()
+            rag.query_batch(questions)
+            out.append((time.perf_counter() - t) * 1e3)
+        store.collective = True
+        return statistics.median(out)
+
+    def routes(what):
+        """The collective's hits (its launches counted), the loop's,
+        and each route's batch ms."""
+        store = rag.store
+        check(store.collective_active, f"collective {what}: not active")
+        path = PathLaunches()
+        coll = path.drive(hits)
+        store.collective = False
+        loop = hits()
+        store.collective = True
+        check(coll == loop, f"collective {what}: the collective's hits "
+                            f"differ from the loop's")
+        return coll, path.counts, {
+            "collective_batch_ms": batch_ms(store, True),
+            "loop_batch_ms": batch_ms(store, False),
+            "local_slots": store._group.buf.shape[0]}
+
+    exact, exact_launches, exact_ms = routes("exact")
+    sharded = rag.store
+    rag.store = VectorStore(rag.graph, device=group.device)
+    flat = hits(seqs=False)
+    rag.store = sharded
+    check(hits(seqs=False) == flat,
+          "collective exact: the hits differ from a flat store's")
+    state = rag.state_dict()
+    state["cfg"] = {**state["cfg"], "quantized_scan": True}
+    qrag, rag = rag, EraRAG.from_state(state, HashingEmbedder(dim=256),
+                                       group=group)
+    quant, quant_launches, quant_ms = routes("quantized")
+    rag = qrag
+    t0 = time.perf_counter()
+    rag.reshard(8)
+    reshard_s = time.perf_counter() - t0
+    check(rag.store.collective_active and rag.store.n_shards == 8,
+          "collective: the reshard to 8 left the collective")
+    check(hits(seqs=False) == flat,
+          "collective: the hits after the reshard to 8 differ")
+    resharded = hits()
+    back = EraRAG.from_state(rag.state_dict(include_store=True),
+                             HashingEmbedder(dim=256), device=group.device)
+    # (restored at the graph's config: 4 shards, replayed from 8)
+    check(back.store.group is None,
+          "collective: the snapshot restored onto a group")
+    rag = back
+    check(hits() == resharded, "collective: the snapshot taken under the "
+                               "group restores other hits without one")
+    return {"docs": COLLECTIVE_DOCS, "rows": sharded.size,
+            "build_s": build_s, "reshard_8_s": reshard_s,
+            "exact": exact_ms, "quantized": quant_ms,
+            "launches": {"exact": exact_launches,
+                         "quantized": quant_launches},
+            "digest": hashlib.blake2b(repr((exact, quant, resharded))
+                                      .encode()).hexdigest()}
+
+
+def _collective_rank(group):
+    out = {"rank": group.rank, "backend": group.backend,
+           "device": str(group.device),
+           "deploy": _collective_deploy(group)}
+    torch.cuda.empty_cache()
+    out["store"] = _collective_store(group)
+    return out
+
+
+def run_collective():
+    """Two ranks on the card in one gloo group (``run_ranks``), each
+    holding half the slots: the 2^22 rows' collective scans and the
+    store-level collective, every check inside the ranks (a rank's
+    failure stops both and fails the script); the ranks' hits must
+    agree.  The kernels are built already: the ranks load them."""
+    from repro_torch.launch.mesh import local_data_group, run_ranks
+
+    check(local_data_group(min_devices=2, device="cuda") is None,
+          "collective: a group of 2 from one process")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_collective_rank, COLLECTIVE_RANKS, device="cuda",
+                      timeout_s=600)
+    wall_s = time.perf_counter() - t0
+    check(len({r["store"]["digest"] for r in ranks}) == 1,
+          "collective: the ranks' hits differ")
+    launches = {name: sum(r["store"]["launches"][route][name]
+                          for r in ranks for route in ("exact",
+                                                       "quantized"))
+                for name in ("lsh_hash", "mips_topk", "hamming_topk",
+                             "mips_rescore")}
+    for name in ("mips_topk", "hamming_topk", "mips_rescore"):
+        check(launches[name] > 0,
+              f"collective: {name} never launched in the ranks' queries")
+    for r in ranks:
+        r["store"].pop("digest")
+    emit("collective", ranks=COLLECTIVE_RANKS, wall_s=wall_s,
+         backend=ranks[0]["backend"], devices=[r["device"] for r in ranks],
+         launches=launches,
+         by_rank=[{k: r[k] for k in ("rank", "deploy", "store")}
+                  for r in ranks],
+         against_sharded_2_22="sharded_ms: the 4-slot loop + merge "
+                              "in one process")
+    return {"launches": launches,
+            "by_rank": [{"exact_ms": r["deploy"]["exact_ms"],
+                         "exact_scans_ms": r["deploy"]["exact_scans_ms"],
+                         "gather_merge_ms": r["deploy"]["gather_merge_ms"],
+                         "quantized_ms": r["deploy"]["quantized_ms"],
+                         "launches_per_call":
+                             r["deploy"]["launches_per_call"]}
+                        for r in ranks]}
+
+
+# ---------------------------------------------------------------------------
+# the port's examples on the card, against their CPU runs
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    import importlib
+    return importlib.import_module(f"{name}_torch")
+
+
+def _example_run(main, argv):
+    """``main(argv)``'s printed lines, its result and its seconds."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    return out.getvalue().splitlines(), result, time.perf_counter() - t0
+
+
+# the train_lm example's 2 microbatches a step (its LoopConfig)
+TRAIN_LM_MICROBATCHES = 2
+# card (bf16 compute, the tensor-core attention kernels) against CPU
+# (fp32, the plain versions) over the example's first steps: relative
+# error of each loss (the bf16 losses' tolerance of
+# tests/test_torch_adafactor.py; the CPU's own bf16 and fp32 losses of
+# these steps differ by 2e-5 relative)
+TRAIN_LM_REF_STEPS = 3
+TRAIN_LM_LOSS_RTOL = 1e-3
+
+
+def _train_lm_against_cpu(mod):
+    """The train_lm example's model (``mod.small_lm()``), batches (8 x
+    128 tokens in 2 microbatches) and AdamW schedule from the same
+    seeded weights: 3 steps on the card in bf16, the example's compute,
+    and on the CPU in fp32 (bf16 there takes about 15 s a step), each
+    loss within ``TRAIN_LM_LOSS_RTOL``.  Then the card's step split by
+    the profiler: CUDA-event ms, device ms by kind of kernel, the
+    kernels a step, the host's share and the costliest kernels."""
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels.timing import kernel_ms, time_ms
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from repro_torch.train.optimizer import cosine_schedule, \
+        make_train_step, opt_init
+
+    cfg = mod.small_lm()
+    tree = params_to_numpy(T.init_params(cfg, torch.Generator()
+                                         .manual_seed(0)))
+    make = synthetic_lm_batches(cfg.vocab_size, 8, 128, seed=0)
+    losses, card = {}, None
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        step = make_train_step(
+            lambda m, bt, dt=dtype: T.loss_fn(m, bt, cfg, compute_dtype=dt),
+            n_microbatches=TRAIN_LM_MICROBATCHES,
+            lr_schedule=cosine_schedule(3e-4, warmup=20, total=300))
+        model = params_from_numpy(tree, cfg, device=dev)
+        opt = opt_init(model)
+        losses[dev] = []
+        for i in range(TRAIN_LM_REF_STEPS):
+            model, opt, m = step(model, opt, make(i))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            card = [step, model, opt]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    check(err <= TRAIN_LM_LOSS_RTOL,
+          f"examples: train_lm's card losses {losses['cuda']} vs the "
+          f"CPU's {losses['cpu']}")
+    step, batch = card[0], make(TRAIN_LM_REF_STEPS)
+
+    def one():
+        card[1], card[2], _ = step(card[1], card[2], batch)
+
+    event_ms = time_ms(one, reps=5, warmup=1)
+    launches = {}
+    by_kernel = kernel_ms(one, reps=2, pattern=r"^(.+)$",
+                          launches=launches)
+    device = sum(by_kernel.values())
+    kinds = {}
+    for name, ms in by_kernel.items():
+        ms_n = kinds.setdefault(_kernel_kind(name), [0.0, 0.0])
+        ms_n[0] += ms
+        ms_n[1] += launches.get(name, 0)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": TRAIN_LM_REF_STEPS, "card_compute": "bfloat16",
+            "cpu_compute": "float32", "card_losses": losses["cuda"],
+            "cpu_losses": losses["cpu"], "max_loss_rel_err": err,
+            "loss_tolerance": TRAIN_LM_LOSS_RTOL,
+            "step_split": {
+                "event_ms": event_ms, "device_ms": device,
+                "host_share": (event_ms - device) / event_ms,
+                "kernels_per_step": sum(n for _, n in kinds.values()),
+                "by_kind": {k: {"device_ms": v[0], "kernels": v[1]}
+                            for k, v in sorted(kinds.items())},
+                "costliest": [{"kernel": n[:80], "device_ms": ms,
+                               "launches": launches.get(n, 0)}
+                              for n, ms in top]}}
+
+
+def run_examples():
+    """Each ``examples/*_torch.py``'s ``main`` on the card (its own
+    asserts included) against a CPU run of the same example: every
+    printed line equal where the example is deterministic.
+    ``train_lm_torch`` at its defaults (300 steps) then, its last
+    checkpoint removed, ``--resume`` from step 200: the resumed losses
+    bitwise the unbroken run's; each run's kernels counted (its
+    ``PathLaunches``): the attention kernels on the tensor-core route
+    only, as many launches as its steps make, the plain version never;
+    on the CPU a 3-step run prints the same model line; the example's
+    first steps held against the CPU (``_train_lm_against_cpu``) and
+    the attention kernels at its shape held against the plain version
+    and timed.  ``distributed_retrieval_torch`` at 2 ranks (card and
+    CPU) and at 1 (the collective off).  Returns the train_lm runs'
+    launches and the attention case."""
+    import shutil
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    sys.path.insert(0, str(ROOT / "examples"))
+    seconds, out = {}, {}
+    for name in ("quickstart", "live_ingest", "rag_serve"):
+        main = _example(name).main
+        card, _, seconds[name] = _example_run(main, [])
+        cpu, _, seconds[f"{name}_cpu"] = _example_run(main,
+                                                      ["--device", "cpu"])
+        check(card == cpu, f"examples: {name} prints other lines on the "
+                           f"card: {card} vs {cpu}")
+        out[name] = {"lines": len(card)}
+    train_mod = _example("train_lm")
+    train, lm_cfg = train_mod.main, train_mod.small_lm()
+    # a step: each microbatch runs every layer's attention forward
+    # twice (the layer's checkpoint runs it again in the backward) and
+    # its backward once
+    per_step = {"fwd": 2 * TRAIN_LM_MICROBATCHES * lm_cfg.n_layers,
+                "bwd": TRAIN_LM_MICROBATCHES * lm_cfg.n_layers}
+    train_launches = {}
+
+    def counted(run, argv, n_steps):
+        path = PathLaunches()
+        fa_ref.reset_call_count()
+        got = path.drive(lambda: _example_run(train, argv))
+        counts = dict(path.counts, attention_ref=fa_ref.call_count())
+        for pass_ in ("fwd", "bwd"):
+            check(counts[f"flash_attention_{pass_}"] ==
+                  n_steps * per_step[pass_] and
+                  counts[f"flash_attention_{pass_}_fp32"] == 0,
+                  f"examples: {run}'s {pass_} attention launches {counts}: "
+                  f"{per_step[pass_]} a step on the tensor-core route")
+        check(counts["attention_ref"] == 0,
+              f"examples: {run} ran the plain attention on the card")
+        train_launches[run] = counts
+        return got
+
+    with _scratch_dir("train_lm_") as tmp:
+        ckpt = Path(tmp) / "card"
+        lines, full, seconds["train_lm"] = counted(
+            "train_lm", ["--ckpt", str(ckpt)], 300)
+        check(full.final_step == 300 and full.losses[-1] < full.losses[0],
+              f"examples: train_lm {lines}")
+        shutil.rmtree(ckpt / "step-00000300")
+        r_lines, resumed, seconds["train_lm_resume"] = counted(
+            "train_lm_resume", ["--ckpt", str(ckpt), "--resume"], 100)
+        check(r_lines[1] == "resumed from step 200" and
+              resumed.losses == full.losses[200:],
+              "examples: the resumed losses differ from the unbroken "
+              "run's")
+        cpu_lines, _, seconds["train_lm_cpu"] = _example_run(
+            train, ["--steps", "3", "--batch", "2", "--seq", "32",
+                    "--device", "cpu", "--ckpt", str(Path(tmp) / "cpu")])
+        check(cpu_lines[0] == lines[0],
+              f"examples: train_lm's model line {lines[0]} vs {cpu_lines[0]}")
+    t0 = time.perf_counter()
+    against_cpu = _train_lm_against_cpu(train_mod)
+    fa_case = attention_case(
+        8 // TRAIN_LM_MICROBATCHES, lm_cfg.n_heads, lm_cfg.n_kv_heads,
+        128, 128, lm_cfg.d_head, True, torch.bfloat16, seed=43,
+        timed=True)
+    seconds["train_lm_against_cpu"] = time.perf_counter() - t0
+    out["train_lm"] = {"model": lines[0], "finished": lines[-1],
+                       "loss_first": full.losses[0],
+                       "loss_last": full.losses[-1],
+                       "median_step_s": statistics.median(full.step_s),
+                       "resumed": r_lines[-1],
+                       "launches": train_launches,
+                       "against_cpu": against_cpu,
+                       "attention_case": fa_case}
+    dist_main = _example("distributed_retrieval").main
+    card, result, seconds["distributed_retrieval"] = _example_run(
+        dist_main, ["--ranks", "2"])
+    cpu, _, seconds["distributed_retrieval_cpu"] = _example_run(
+        dist_main, ["--ranks", "2", "--device", "cpu"])
+    check(card == cpu, f"examples: distributed_retrieval at 2 ranks "
+                       f"prints other lines on the card: {card} vs {cpu}")
+    # the loop on one rank: its one slot's scan and the merge
+    check(result["launches"] == (1, 2),
+          f"examples: distributed_retrieval's launches {result}")
+    one, one_result, seconds["distributed_retrieval_1_rank"] = \
+        _example_run(dist_main, ["--ranks", "1"])
+    check(one[-1].startswith("collective query auto-off") and
+          one_result["launches"] is None,
+          f"examples: distributed_retrieval at 1 rank: {one}")
+    out["distributed_retrieval"] = {"backend": result["backend"],
+                                    "lines": card, "one_rank": one[-1]}
+    emit("examples", seconds=seconds, **out)
+    return {"launches": train_launches, "attention_case": fa_case}
 
 
 # ---------------------------------------------------------------------------
@@ -4635,6 +5174,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_maverick_block()
     sh_deploy = run_sharded_deploy()
+    coll = run_collective()
+    ex = run_examples()
     run_reference_check(index_shards=4)
     run_reference_check(quantized_scan=True, index_shards=4)
     fa_main = run_flash_attention()
@@ -4663,7 +5204,8 @@ def main() -> int:
 
     def later(name):
         """The launches of the lifecycle, live-day, train_resume, MoE and
-        phi3_train phases, each read by its ``PathLaunches``
+        phi3_train phases and of the train_lm example's card runs (the
+        300 steps and the resume), each read by its ``PathLaunches``
         (``moe_serving``: the MoE summarizer's and LM reader's runs; its
         engine and maverick runs launch none of these kernels, checked
         for attention)."""
@@ -4673,7 +5215,11 @@ def main() -> int:
                 "moe_serving": {"launches": moe_rag_launches[name]},
                 "moe_reference": {"launches": moe_ref_path.counts[name]},
                 "moe_train": {"launches": moe_train_launches[name]},
-                "phi3_train": {"launches": phi3_launches[name]}}
+                "phi3_train": {"launches": phi3_launches[name]},
+                "examples_train_lm": {
+                    "launches": ex["launches"]["train_lm"][name],
+                    "resume_launches":
+                        ex["launches"]["train_lm_resume"][name]}}
 
     def entry(name, replaces, main_case, deploy_case, n_launches,
               source=None, extra=(), **more):
@@ -4706,7 +5252,8 @@ def main() -> int:
 
     def train_fa(case, pass_):
         """A training shape's case (``moe_train``: hq = hkv = 16;
-        ``phi3_train``: hq = 40, hkv = 10), held and timed there."""
+        ``phi3_train``: hq = 40, hkv = 10; the train_lm example: b = 4,
+        hq = 8, hkv = 4, l = 128, d = 64), held and timed there."""
         t = case["timing"]
         return {"shape": case["shape"],
                 "max_abs_err": case["out_max_abs_err"]
@@ -4759,7 +5306,12 @@ def main() -> int:
                   key: sh_deploy[key] for key in (
                       "sharded_ms", "flat_ms", "sharded_device_ms",
                       "flat_device_ms", "sharded_launches_per_call",
-                      "merge_device_ms", "bitwise_equal_flat")}),
+                      "merge_device_ms", "bitwise_equal_flat")},
+              # two ranks on the card, 2 of the 4 slots each: the
+              # store-level collective's launches (both ranks), and each
+              # rank's call at 2^22
+              collective={"launches": coll["launches"]["mips_topk"],
+                          "at_2_22_by_rank": coll["by_rank"]}),
         # main path and at_2_22_c32: the list route (C = 32); at_2_22:
         # the counting route (C = 4096)
         entry("hamming_topk", "src/repro/kernels/hamming_topk/kernel.py:57",
@@ -4769,7 +5321,8 @@ def main() -> int:
                            for k in keys + ham_keys},
               at_2_22_c32_b1={k: quant_c32["hamming_topk"]["b1"][k]
                               for k in keys + ham_keys},
-              sharded_path={"launches": sh_q_launches["hamming_topk"]}),
+              sharded_path={"launches": sh_q_launches["hamming_topk"]},
+              collective={"launches": coll["launches"]["hamming_topk"]}),
         # the exact rescore, XLA (not Pallas) in the JAX package; main
         # path and at_2_22_c32: C = 32, at_2_22: C = 4096
         entry("mips_rescore", "src/repro/kernels/quantized_scan/ops.py:229",
@@ -4779,12 +5332,15 @@ def main() -> int:
               extra=rescore_keys,
               at_2_22_c32={k: quant_c32["mips_rescore"][k]
                            for k in keys + rescore_keys},
-              sharded_path={"launches": sh_q_launches["mips_rescore"]}),
+              sharded_path={"launches": sh_q_launches["mips_rescore"]},
+              collective={"launches": coll["launches"]["mips_rescore"]}),
         # launches: the bf16 training path's (5 steps), on the tensor
         # cores; the fp32 FMA kernels' from train_reference's card steps
         *(dict(fa_entry(fa_main[torch.bfloat16], train_launches, pass_),
                moe_train_shape=train_fa(moe_fa_case, pass_),
-               phi3_train_shape=train_fa(phi3_fa_case, pass_))
+               phi3_train_shape=train_fa(phi3_fa_case, pass_),
+               train_lm_example_shape=train_fa(ex["attention_case"],
+                                               pass_))
           for pass_ in ("fwd", "bwd")),
         *(fa_entry(fa_main[torch.float32], fp32_launches, pass_, "_fp32")
           for pass_ in ("fwd", "bwd")),

@@ -2,10 +2,13 @@
 
 The JAX package lays the stacked ``(S, cap, d + F)`` buffer over the
 ``db_shards`` axes of a device mesh (``common/sharding.py`` there).  The
-port serves one device per store, so it keeps only the two rules the
-store needs, over a plain list of devices: how many slots a shard count
-takes (``padded_slot_count``) and which device owns each shard
-(``shard_placements``).  No mesh object is ported.
+port lays it over the ranks of a process group (``launch/mesh.py``'s
+``DataGroup``) instead, and keeps the rules the store needs: the size of
+the shard axis (``db_axis_size``: the group's ranks), how many slots a
+shard count takes (``padded_slot_count``: slots are padded, never
+ranks), which slots a rank holds (``stacked_slot_range``: contiguous,
+shard-major) and which device owns each shard of a store on one device
+(``shard_placements``).  The logical-rule engine is not ported here.
 """
 from __future__ import annotations
 
@@ -17,11 +20,31 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-def padded_slot_count(n_shards: int, n_devices: int) -> int:
+def db_axis_size(group=None) -> int:
+    """Ranks along the store's shard axis: the group's size, 1 without
+    a group."""
+    return 1 if group is None else int(group.world_size)
+
+
+def padded_slot_count(n_shards: int, axis_size: int) -> int:
     """Slot count for a stacked shard buffer: the smallest multiple of
-    the device count that fits ``n_shards`` (extra slots stay empty,
-    their rows dead-flagged)."""
-    return -(-int(n_shards) // int(n_devices)) * int(n_devices)
+    the shard axis's size that fits ``n_shards`` (extra slots stay
+    empty, their rows dead-flagged, rather than ever collapsing rows
+    onto one rank)."""
+    return -(-int(n_shards) // int(axis_size)) * int(axis_size)
+
+
+def stacked_slot_range(n_slots: int, axis_size: int, rank: int) -> range:
+    """The slots of an ``n_slots`` stacked buffer that ``rank`` holds
+    when the buffer is laid over ``axis_size`` ranks: a contiguous,
+    shard-major group of ``n_slots / axis_size`` (``shard_placements``'
+    rule when the count divides; ``padded_slot_count`` makes it
+    divide)."""
+    if n_slots % axis_size:
+        raise ValueError(f"{n_slots} slots do not divide {axis_size} "
+                         f"ranks; pad them with padded_slot_count")
+    per = n_slots // axis_size
+    return range(rank * per, (rank + 1) * per)
 
 
 def shard_placements(devices: Sequence[torch.device],

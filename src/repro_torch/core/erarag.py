@@ -19,9 +19,13 @@ hash-sharded store (``index_shards`` > 1, or 0 for one shard per device
 of the store's device type), each with the exact scan or, under
 ``quantized_scan=True``, the two-stage quantized scan (``coarse_mult``,
 ``scan_bits`` and the config seed pass through to the store), and the
-explicit ``EraRAG.reshard``.  The sharded store's collective query
-(``collective_query``) needs several devices and a process group, so
-the per-shard loop serves every batch, as in the JAX package without a
+explicit ``EraRAG.reshard``.  ``group`` (a ``launch/mesh.py``
+``DataGroup``, the JAX package's ``mesh``) lays the sharded store over a
+process group's ranks, each holding its own slots on the group's
+device; every rank then builds the same graph and makes the same calls.
+``collective_query`` (on by default) then serves each query batch as
+one collective call over the group; with no group, or a group of one
+rank, the per-shard loop serves it, as in the JAX package without a
 mesh.  ``query_cache=True`` puts the epoch-invalidated
 ``SemanticQueryCache`` in front of retrieval.  The ``reshard_*``
 thresholds attach a ``LifecyclePolicy`` to the store, whose explicit
@@ -55,23 +59,30 @@ def _quant_kw(cfg: EraRAGConfig) -> dict:
             "scan_bits": cfg.scan_bits, "scan_seed": cfg.seed}
 
 
-def make_store(graph, cfg: EraRAGConfig, device=None) -> AnyStore:
-    """cfg.index_shards: 1 -> the single-buffer store; > 1 -> that many
-    hash-routed shards; 0 -> one shard per device of the store's device
-    type (``torch.cuda.device_count()`` on the card, 1 on the CPU)."""
+def make_store(graph, cfg: EraRAGConfig, device=None,
+               group=None) -> AnyStore:
+    """cfg.index_shards: 1 -> the single-buffer store (a group does not
+    override an explicitly unsharded config); > 1 -> that many
+    hash-routed shards, over ``group``'s ranks when given; 0 -> one
+    shard per rank of the group, or without one per device of the
+    store's device type (``torch.cuda.device_count()`` on the card, 1 on
+    the CPU).  ``cfg.collective_query`` selects the collective query."""
     if cfg.index_shards == 1:
         return VectorStore(graph, device=device, **_quant_kw(cfg))
     return ShardedVectorStore(
-        graph, n_shards=cfg.index_shards or None, device=device,
-        collective=cfg.collective_query, **_quant_kw(cfg))
+        graph, n_shards=cfg.index_shards or None, group=group,
+        device=device, collective=cfg.collective_query, **_quant_kw(cfg))
 
 
 class EraRAG:
     def __init__(self, cfg: EraRAGConfig, embedder,
-                 summarizer: Optional[Summarizer] = None, device=None):
+                 summarizer: Optional[Summarizer] = None, device=None,
+                 group=None):
         self.cfg = cfg
         self.embedder = embedder
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = group.device if group is not None and \
+            device is None else resolve_device(device)
         self.tokenizer = HashTokenizer()
         # per-pipeline observability: a private metrics registry plus
         # the span tracer (NULL_TRACER unless cfg.obs_trace)
@@ -79,7 +90,7 @@ class EraRAG:
         self.graph = EraGraph(cfg, embedder, summarizer, self.tokenizer,
                               device=self.device)
         self.graph.tracer = self.obs.tracer
-        self.store = make_store(self.graph, cfg, self.device)
+        self.store = make_store(self.graph, cfg, self.device, group)
         self.store.tracer = self.obs.tracer
         self._attach_lifecycle()
         self.reports: List[UpdateReport] = []
@@ -116,7 +127,7 @@ class EraRAG:
         to use afterwards; its epoch, the first half of the cache token,
         moves on by one."""
         from repro_torch.lifecycle.reshard import Resharder
-        resharder = Resharder(device=self.device,
+        resharder = Resharder(group=self.group, device=self.device,
                               collective=self.cfg.collective_query,
                               **_quant_kw(self.cfg))
         self.store = resharder.reshard(self.store, n_shards)
@@ -247,9 +258,9 @@ class EraRAG:
     @classmethod
     def from_state(cls, state: dict, embedder,
                    summarizer: Optional[Summarizer] = None,
-                   device=None) -> "EraRAG":
+                   device=None, group=None) -> "EraRAG":
         cfg = EraRAGConfig(**state["cfg"])
-        obj = cls(cfg, embedder, summarizer, device=device)
+        obj = cls(cfg, embedder, summarizer, device=device, group=group)
         obj.graph = EraGraph.from_state(state, embedder, summarizer,
                                         device=obj.device)
         obj.graph.tracer = obj.obs.tracer
@@ -258,12 +269,13 @@ class EraRAG:
             # snapshot's); a disagreement with the snapshot replays
             # through the lifecycle Resharder, never a full re-embed
             obj.store = store_from_state(state["store"], obj.graph,
+                                         group=group,
                                          n_shards=cfg.index_shards,
                                          collective=cfg.collective_query,
                                          device=obj.device,
                                          **_quant_kw(cfg))
         else:
-            obj.store = make_store(obj.graph, cfg, obj.device)
+            obj.store = make_store(obj.graph, cfg, obj.device, group)
         obj.store.tracer = obj.obs.tracer
         obj._attach_lifecycle()
         return obj

@@ -80,9 +80,23 @@ Live resharding: ``attach_lifecycle`` hands the sharded store a
 ``LifecyclePolicy``; every explicit ``refresh()`` then commits the
 staged compaction, builds one target shard of an in-flight migration
 (or installs it), replays the delta log, and consults the policy, in
-that order.  Not served yet: the collective query over a process group
-(the loop serves every batch, as the JAX package's does without a
-mesh).
+that order.
+
+Over a process group (``group=``, a ``launch/mesh.py`` ``DataGroup``:
+the JAX package's ``mesh=``) the stacked buffer is laid over the ranks:
+each rank allocates only its own slots, and every rank keeps the whole
+host metadata (routing, counts, capacity, sequence map, tombstones, the
+compaction rotation), identical everywhere because every rank replays
+the same deltas.  A query then runs as one collective call
+(``sharded_mips_topk``, or ``sharded_quantized_topk``): each rank scans
+its slots with the kernels, the ``(S, b, k)`` candidates are
+all-gathered and merged, and every rank gets the same hits.
+``collective=False`` keeps the loop as the oracle: each rank scans its
+non-empty slots and the candidates are gathered the same way.
+``state_dict`` and ``export_rows`` gather every slot's rows, so a
+snapshot taken under a group is the one taken without.  Every rank must
+make the same store calls in the same order: a rank that queries alone
+waits in the collective until the group's timeout.
 """
 from __future__ import annotations
 
@@ -95,15 +109,16 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.common.sharding import local_shard_count, \
-    padded_slot_count, shard_placements
+from repro_torch.common.sharding import db_axis_size, \
+    local_shard_count, padded_slot_count, shard_placements, \
+    stacked_slot_range
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.mips_topk.ops import MASK_BIAS, SEQ_PAD, \
-    VAL_PAD, augment_queries, flagged_mips_topk, merge_sharded_topk, \
-    mips_topk
+    VAL_PAD, augment_queries, flagged_mips_topk, gather_merge_topk, \
+    mips_topk, sharded_mips_topk
 from repro_torch.kernels.quantized_scan.ops import FLAG_SET, QuantSpec, \
     encode_rows, hyperplanes, prepare_queries, quantized_flagged_topk, \
-    two_stage_topk
+    sharded_quantized_topk, two_stage_topk
 from repro_torch.obs.trace import NULL_TRACER
 
 logger = logging.getLogger(__name__)
@@ -229,6 +244,12 @@ def shard_of_many(ids: Sequence[str], n_shards: int) -> np.ndarray:
     return _global_router.many(ids, n_shards)
 
 
+def routing_cache_info() -> Dict[str, int]:
+    """The process-global routing cache's counters (``shard_of`` /
+    ``shard_of_many`` traffic only; each store counts its own)."""
+    return _global_router.info()
+
+
 # ---------------------------------------------------------------------------
 # stacked device buffers
 # ---------------------------------------------------------------------------
@@ -248,15 +269,25 @@ class _StackedBuffers:
     with it.  S = 1 keeps 2-D tensors (``(cap, d + N_FLAGS)``), so the
     flat store scans the buffer itself.  Every mutation is an in-place
     write on one slot except growth (reallocate + copy) and the flat
-    layout's compaction commit (a swap)."""
+    layout's compaction commit (a swap).
+
+    Over a process group (``group``) the tensors hold only this rank's
+    slots (``local``: a contiguous range, ``stacked_slot_range``), as
+    the JAX package's stacked array is laid out over the data axis.  A
+    write to another rank's slot is a no-op here; the capacity (and so
+    every allocation) is the same on every rank, since every rank
+    replays the same deltas."""
 
     def __init__(self, n_slots: int, dim: int, device: torch.device, *,
                  min_capacity: int = 64, track_seqs: bool = False,
                  quant: Optional[QuantSpec] = None,
-                 stats: Optional[StoreStats] = None):
+                 stats: Optional[StoreStats] = None, group=None):
         self.n_slots = int(n_slots)
         self.dim = int(dim)
         self.device = device
+        self.group = group
+        self.local = range(self.n_slots) if group is None else \
+            stacked_slot_range(self.n_slots, group.world_size, group.rank)
         self.min_capacity = int(min_capacity)
         self.track_seqs = bool(track_seqs)
         self.quant = quant
@@ -267,6 +298,10 @@ class _StackedBuffers:
         self.stats = stats if stats is not None else StoreStats()
         self._flat2d = self.n_slots == 1
         self.reset()
+
+    def holds(self, slot: int) -> bool:
+        """Whether this rank's tensors hold ``slot``."""
+        return slot in self.local
 
     def reset(self) -> None:
         self.capacity = 0
@@ -279,15 +314,18 @@ class _StackedBuffers:
         """The per-slot views of the current tensors, made once per
         allocation (a view shares the slot's storage: no copy)."""
         def views(t):
-            if t is None:
-                return [None] * self.n_slots
-            return [t] if self._flat2d else list(t.unbind(0))
+            out = [None] * self.n_slots
+            if t is not None:
+                local = [t] if self._flat2d else t.unbind(0)
+                for slot, view in zip(self.local, local):
+                    out[slot] = view
+            return out
         self._views = views(self.buf)
         self._seq_views = views(self.seq)
         self._code_views = views(self.codes)
 
     def _lead(self) -> Tuple[int, ...]:
-        return () if self._flat2d else (self.n_slots,)
+        return () if self._flat2d else (len(self.local),)
 
     def _empty(self, lead: Tuple[int, ...], cap: int) -> torch.Tensor:
         buf = torch.zeros(lead + (cap, self.dim + N_FLAGS),
@@ -352,6 +390,8 @@ class _StackedBuffers:
         its sequence numbers into the plane, and with ``quant`` the
         block's codes, hashed on the device: its flag columns (a
         snapshot's tombstones included) become penalty groups."""
+        if not self.holds(slot):
+            return
         m = block.shape[0]
         rows = self._views[slot][row0:row0 + m]
         rows.copy_(torch.from_numpy(block))
@@ -365,13 +405,15 @@ class _StackedBuffers:
 
     def upload_seqs(self, slot: int, seqs: np.ndarray) -> None:
         """Re-stamp a slot's sequence prefix (renumbering)."""
-        if self.track_seqs and len(seqs):
+        if self.track_seqs and len(seqs) and self.holds(slot):
             self._seq_views[slot][:len(seqs)].copy_(
                 torch.from_numpy(np.asarray(seqs, np.int32)))
 
     def mark_dead(self, slot: int, rows: np.ndarray) -> None:
         """In place: set the dead flag of ``rows`` (and their codes'
         dead group: no rehash)."""
+        if not self.holds(slot):
+            return
         idx = torch.as_tensor(np.asarray(rows, np.int64),
                               device=self.device)
         self._views[slot][idx, self.dim + _DEAD] = 1.0
@@ -383,7 +425,9 @@ class _StackedBuffers:
         """The order-preserving gather of a slot's ``keep`` rows (and
         sequence numbers and codes, by the same index) into NEW
         standalone tensors, the double buffer; the group is untouched
-        until ``commit_compacted``."""
+        until ``commit_compacted`` (nothing for another rank's slot)."""
+        if not self.holds(slot):
+            return None, None, None
         n = len(keep)
         idx = torch.as_tensor(np.asarray(keep, np.int64),
                               device=self.device)
@@ -399,6 +443,8 @@ class _StackedBuffers:
         return rows, seq, codes
 
     def commit_compacted(self, slot: int, compacted: _Compacted) -> None:
+        if not self.holds(slot):
+            return
         rows, seq, codes = compacted
         if self._flat2d:
             self.buf, self.seq, self.codes = rows, seq, codes
@@ -410,11 +456,15 @@ class _StackedBuffers:
         if codes is not None:
             self._code_views[slot].copy_(codes)
 
-    def read_rows(self, slot: int, n: int) -> np.ndarray:
-        if n == 0:
-            return np.zeros((0, self.dim + N_FLAGS), np.float32)
-        # a copy on every device (a CPU tensor's .numpy() would alias)
-        return self._views[slot][:n].to("cpu", copy=True).numpy()
+    def host_stack(self) -> Optional[np.ndarray]:
+        """The whole buffer on the host, every slot (``(S, cap, d +
+        N_FLAGS)``, or the flat layout's ``(cap, d + N_FLAGS)``): one
+        copy, or over a group one all-gather that every rank calls."""
+        if self.buf is None:
+            return None
+        buf = self.buf if self.group is None else \
+            self.group.all_gather(self.buf)
+        return buf.to("cpu", copy=True).numpy()
 
 
 class _Shard:
@@ -555,9 +605,19 @@ class _Shard:
             return self.n_alive["summary"]
         return self.n_alive["leaf"] + self.n_alive["summary"]
 
-    def state_dict(self) -> dict:
+    def host_rows(self, stack: Optional[np.ndarray]) -> np.ndarray:
+        """This slot's first ``count`` rows of ``stack``, the group's
+        ``host_stack()`` (one read-back serves every shard)."""
+        if self.count == 0:
+            return np.zeros((0, self.dim + N_FLAGS), np.float32)
+        return stack[:self.count] if stack.ndim == 2 else \
+            stack[self.slot, :self.count]
+
+    def state_dict(self, stack: Optional[np.ndarray]) -> dict:
+        """The shard's snapshot, its rows from ``stack`` (the group's
+        ``host_stack()``)."""
         return {
-            "buf": self.group.read_rows(self.slot, self.count),
+            "buf": self.host_rows(stack),
             "row_ids": list(self.row_ids),
             "row_layers": self.row_layers[:self.count].copy(),
             "row_seq": self.row_seq[:self.count].copy(),
@@ -966,9 +1026,9 @@ class _BaseStore:
         layers: List[np.ndarray] = []
         seqs: List[np.ndarray] = []
         rows: List[np.ndarray] = []
-        # ONE device -> host copy of the whole stack
-        stack = self._group.buf.cpu().numpy() \
-            if self._group.buf is not None else None
+        # ONE device -> host copy of the whole stack (a gather over a
+        # group: every rank replays every row)
+        stack = self._group.host_stack()
         for sh in self._shards:
             n = sh.count
             if n == 0:
@@ -976,7 +1036,7 @@ class _BaseStore:
             keep = np.nonzero(sh.alive[:n])[0]
             if len(keep) == 0:
                 continue
-            buf = stack[:n] if stack.ndim == 2 else stack[sh.slot, :n]
+            buf = sh.host_rows(stack)
             ids.extend(sh.row_ids[int(r)] for r in keep)
             layers.append(sh.row_layers[:n][keep])
             seqs.append(sh.row_seq[:n][keep])
@@ -1092,7 +1152,7 @@ class VectorStore(_BaseStore):
             "version": self._version,
             "next_seq": self._next_seq,
             "quant": self._quant_state(),
-            "shard": self._s.state_dict(),
+            "shard": self._s.state_dict(self._group.host_stack()),
         }
 
     @classmethod
@@ -1110,42 +1170,68 @@ class VectorStore(_BaseStore):
 # ---------------------------------------------------------------------------
 
 class ShardedVectorStore(_BaseStore):
-    """Hash-sharded incremental index on one device: the same public API
-    and bitwise-identical results as ``VectorStore`` (see the module
-    docstring).  ``n_shards`` defaults to one shard per device of the
-    store's device type.  ``collective=True`` is accepted, as in the JAX
-    package; the collective needs a process group of several devices,
-    which a store on one device never has, so the per-shard loop
-    (``collective_active`` False) serves every batch, as the JAX
-    package's does without a mesh."""
+    """Hash-sharded incremental index: the same public API and
+    bitwise-identical results as ``VectorStore`` (see the module
+    docstring).
+
+    Without ``group`` the store lives on one device and ``n_shards``
+    defaults to one shard per device of its device type.  With a
+    ``DataGroup`` (``launch/mesh.py``) the stacked buffer is laid over
+    the group's ranks (``n_shards`` defaults to the group's size; a
+    count that does not divide it pads slots, never ranks), each rank
+    holding its own slots on ``group.device`` and every rank the same
+    host metadata; every rank then makes the same calls in the same
+    order.  ``collective`` selects the collective query
+    (``sharded_mips_topk`` / ``sharded_quantized_topk``), active only on
+    a group of several ranks; ``collective=False`` keeps the per-shard
+    loop as the parity oracle."""
 
     def __init__(self, graph, *, n_shards: Optional[int] = None,
-                 compact_threshold: float = 0.25,
+                 group=None, compact_threshold: float = 0.25,
                  min_capacity: int = 64, collective: bool = True,
                  quantized: bool = False, coarse_mult: int = 4,
                  scan_bits: int = 64, scan_seed: int = 0, device=None):
         super().__init__(graph, compact_threshold)
-        self.device = resolve_device(device)
+        if group is not None and device is not None and \
+                torch.device(device).type != group.device.type:
+            raise ValueError(f"a store on {device} cannot use a group "
+                             f"on {group.device}")
+        self.device = group.device if group is not None else \
+            resolve_device(device)
         self.quantized = bool(quantized)
         self.coarse_mult = int(coarse_mult)
         self.scan_bits = int(scan_bits)
         self.scan_seed = int(scan_seed)
+        axis_size = db_axis_size(group)
         if n_shards is None:
-            n_shards = local_shard_count(self.device)
+            n_shards = axis_size if group is not None else \
+                local_shard_count(self.device)
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.n_shards = int(n_shards)
+        self.group = group
         self.collective = bool(collective)
-        self._collective_capable = False
+        self._collective_capable = axis_size > 1
         self._store_stats = StoreStats()
         dim = graph.cfg.embed_dim
-        devices = [self.device]
-        self._placements = shard_placements(devices, self.n_shards)
+        n_slots = padded_slot_count(self.n_shards, axis_size)
+        if n_slots != self.n_shards:
+            logger.warning(
+                "ShardedVectorStore: %d shards padded to %d slots to "
+                "divide the group's %d ranks", self.n_shards, n_slots,
+                axis_size)
+        if group is None:
+            self._placements = shard_placements([self.device],
+                                                self.n_shards)
+        else:
+            per = n_slots // axis_size
+            self._placements = [f"rank {s // per}"
+                                for s in range(self.n_shards)]
         self._group = _StackedBuffers(
-            padded_slot_count(self.n_shards, len(devices)), dim,
-            self.device, min_capacity=int(min_capacity), track_seqs=True,
+            n_slots, dim, self.device, min_capacity=int(min_capacity),
+            track_seqs=True,
             quant=_quant_spec(dim, quantized, scan_bits, scan_seed),
-            stats=self._store_stats)
+            stats=self._store_stats, group=group)
         self._shards = [_Shard(dim, self._group, s)
                         for s in range(self.n_shards)]
         self._track_seq_map = True
@@ -1202,8 +1288,9 @@ class ShardedVectorStore(_BaseStore):
     def search_batch(self, queries: np.ndarray, k: int,
                      layer_filter: Optional[str] = None
                      ) -> List[List[Hit]]:
-        """The per-shard loop + the on-device merge, bitwise the
-        single-buffer store's result."""
+        """The collective query when ``collective_active``, else the
+        per-shard loop + the merge; either way bitwise the single-buffer
+        store's result (over a group, the same on every rank)."""
         with self.tracer.span("route", epoch=self.epoch):
             self._refresh()
         q = _check_queries(queries)
@@ -1214,9 +1301,34 @@ class ShardedVectorStore(_BaseStore):
         if n_valid == 0 or k <= 0:
             return [[] for _ in range(n_q)]
         k_eff = min(k, n_valid)
-        quant = self.quantized and self._group.quant is not None
-        mv, ms = self._loop_dispatch(q, k_eff, _filter_bias(layer_filter),
-                                     quantized=quant)
+        bias = _filter_bias(layer_filter)
+        grp = self._group
+        quant = self.quantized and grp.quant is not None
+        if self.collective_active:
+            k_shard = min(k_eff, grp.capacity)
+            q_dev = torch.from_numpy(q).to(self.device)
+            if quant:
+                # C clamps to the lockstep capacity (C == cap: each
+                # slot's result is the exact scan's)
+                n_coarse = max(min(self.coarse_mult * k_eff,
+                                   grp.capacity), k_shard)
+                with self.tracer.span("coarse_scan", epoch=self.epoch,
+                                      n=n_q, k=k_eff, collective=True,
+                                      fused_rescore=True):
+                    mv, ms = sharded_quantized_topk(
+                        q_dev, grp.buf, grp.codes, grp.seq, grp.planes,
+                        k_shard, k_eff, n_coarse, bias, grp.quant,
+                        group=self.group)
+            else:
+                # scans, gather and merge: one call, one span
+                with self.tracer.span("scan", epoch=self.epoch, n=n_q,
+                                      k=k_eff, collective=True):
+                    mv, ms = sharded_mips_topk(
+                        q_dev, grp.buf, grp.seq, k_shard, k_eff, bias,
+                        group=self.group)
+            self._store_stats.kernel_launches += 1
+        else:
+            mv, ms = self._loop_dispatch(q, k_eff, bias, quantized=quant)
         if quant:
             self._store_stats.quantized_scans += 1
         # ONE read-back: the scores' bits beside the sequence numbers
@@ -1239,7 +1351,9 @@ class ShardedVectorStore(_BaseStore):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One scan per non-empty shard on its slot view (the query
         block, and its codes, made once for the loop), then the merge
-        on the device."""
+        on the device.  Over a group each rank scans its own non-empty
+        slots; the candidates of all slots (padding for the empty ones)
+        are gathered, as the collective's are, and merged."""
         grp = self._group
         q_dev = torch.from_numpy(q).to(self.device)
         if quantized:
@@ -1248,27 +1362,32 @@ class ShardedVectorStore(_BaseStore):
         else:
             q_aug, q_codes = augment_queries(q_dev, bias).contiguous(), \
                 None
-        vals: List[torch.Tensor] = []
-        seqs: List[torch.Tensor] = []
+        parts: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         span = "coarse_scan" if quantized else "scan"
         with self.tracer.span(span, epoch=self.epoch, n=q.shape[0],
                               k=k_eff, collective=False):
             for sh in self._shards:
-                if sh.count == 0:
+                if sh.count == 0 or not grp.holds(sh.slot):
                     continue
-                v, s = slot_topk(
+                parts[sh.slot] = slot_topk(
                     q_aug, sh.buf, grp.seq_view(sh.slot), k_eff,
                     q_codes=q_codes,
                     codes=grp.codes_view(sh.slot) if quantized else None,
                     n_coarse=self.coarse_mult * k_eff)
-                vals.append(v)
-                seqs.append(s)
-        # one scan per non-empty shard above, plus the merge below
-        self._store_stats.kernel_launches += len(vals) + 1
+        # this rank's scans above, plus the merge below
+        self._store_stats.kernel_launches += len(parts) + 1
+        # an empty slot's candidates are padding, which ranks after
+        # every real one (k_eff <= the valid rows)
+        pad = (q.shape[0], k_eff)
+        blocks = [parts.get(slot) or (
+            torch.full(pad, VAL_PAD, device=self.device),
+            torch.full(pad, SEQ_PAD, dtype=torch.int32,
+                       device=self.device)) for slot in grp.local]
         with self.tracer.span("merge", epoch=self.epoch,
-                              shards=len(vals)):
-            return merge_sharded_topk(torch.stack(vals),
-                                      torch.stack(seqs), k_eff)
+                              shards=len(parts)):
+            return gather_merge_topk(
+                torch.stack([v for v, _ in blocks]),
+                torch.stack([s for _, s in blocks]), k_eff, self.group)
 
     # ------------------------------------------------------------------
     # lifecycle: atomic epoch swap (reshard commit)
@@ -1286,6 +1405,7 @@ class ShardedVectorStore(_BaseStore):
         self._group.stats = self._store_stats
         self._shards = staging._shards
         self.n_shards = staging.n_shards
+        self.group = staging.group
         self._collective_capable = staging._collective_capable
         self._placements = staging._placements
         self._seq_map = staging._seq_map
@@ -1300,31 +1420,37 @@ class ShardedVectorStore(_BaseStore):
     # persistence
     # ------------------------------------------------------------------
     def state_dict(self) -> dict:
+        """The whole store on every rank (over a group the rows of every
+        rank's slots, gathered once), as a store without a group saves
+        it."""
         self._refresh()
+        stack = self._group.host_stack()
         return {
             "kind": "sharded",
             "n_shards": self.n_shards,
             "version": self._version,
             "next_seq": self._next_seq,
             "quant": self._quant_state(),
-            "shards": [sh.state_dict() for sh in self._shards],
+            "shards": [sh.state_dict(stack) for sh in self._shards],
         }
 
     @classmethod
-    def from_state(cls, state: dict, graph, *,
+    def from_state(cls, state: dict, graph, *, group=None,
                    n_shards: Optional[int] = None,
                    **kw) -> "ShardedVectorStore":
-        """Restore a snapshot.  ``n_shards`` (None/0 = keep the
-        snapshot's layout) may disagree with the snapshot: the rows are
-        then replayed through the lifecycle ``Resharder`` into a
+        """Restore a snapshot (on ``group``'s ranks, each loading its own
+        slots, when given).  ``n_shards`` (None/0 = keep the snapshot's
+        layout) may disagree with the snapshot: the rows are then
+        replayed through the lifecycle ``Resharder`` into a
         freshly-routed store at the requested count."""
         _apply_quant_state(state, kw)
         snap = int(state["n_shards"])
         want = snap if not n_shards else int(n_shards)
         if want != snap:
             from repro_torch.lifecycle.reshard import Resharder
-            return Resharder(**kw).replay_state(state, graph, want)
-        store = cls(graph, n_shards=snap, **kw)
+            return Resharder(group=group, **kw).replay_state(state, graph,
+                                                             want)
+        store = cls(graph, n_shards=snap, group=group, **kw)
         for sh, sh_state in zip(store._shards, state["shards"]):
             sh.load_state(sh_state)
         store._rebuild_seq_map()
@@ -1336,22 +1462,25 @@ class ShardedVectorStore(_BaseStore):
 AnyStore = Union[VectorStore, ShardedVectorStore]
 
 
-def store_from_state(state: dict, graph, *,
+def store_from_state(state: dict, graph, *, group=None,
                      n_shards: Optional[int] = None, **kw) -> AnyStore:
     """Restore whichever store kind ``state`` was saved from (the JAX
-    package's snapshots included).  ``n_shards`` (None/0 = respect the
-    snapshot's layout) reshards the snapshot through the lifecycle
-    ``Resharder`` when it disagrees, across kinds too."""
+    package's snapshots included), a sharded one on ``group`` when
+    given.  ``n_shards`` (None/0 = respect the snapshot's layout)
+    reshards the snapshot through the lifecycle ``Resharder`` when it
+    disagrees, across kinds too."""
     _apply_quant_state(state, kw)   # replayed stores keep their plane
     want = int(n_shards) if n_shards else None
     if state.get("kind") == "sharded":
         if want is not None and want != int(state["n_shards"]):
             from repro_torch.lifecycle.reshard import Resharder
-            return Resharder(**kw).replay_state(state, graph, want,
-                                                flat=want == 1)
-        return ShardedVectorStore.from_state(state, graph, **kw)
+            return Resharder(group=group, **kw).replay_state(
+                state, graph, want, flat=want == 1)
+        return ShardedVectorStore.from_state(state, graph, group=group,
+                                             **kw)
     if want is not None and want != 1:
         from repro_torch.lifecycle.reshard import Resharder
-        return Resharder(**kw).replay_state(state, graph, want)
+        return Resharder(group=group, **kw).replay_state(state, graph,
+                                                         want)
     kw.pop("collective", None)   # flat store has no dispatch modes
     return VectorStore.from_state(state, graph, **kw)

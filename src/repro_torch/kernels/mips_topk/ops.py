@@ -16,17 +16,25 @@ scan's score for that row.
 into the global top-k by (score desc, sequence asc).  It is XLA in the
 JAX package, so here it is plain torch ops on the candidates' device.
 
+``sharded_mips_topk`` is the collective query of a store laid over a
+process group (``launch/mesh.py``): each rank scans its own slots with
+the kernel, maps rows to global sequence numbers, and
+``gather_merge_topk`` all-gathers the small ``(s, b, k)`` candidate
+block and merges it, so every rank returns the same top-k.
+
 The launch counters live on the process-global obs registry
 (``kernels.mips_topk.launches``, ``kernels.mips_rescore.launches``) and
-count CUDA kernel launches only; the merge counts its calls apart
-(``kernels.mips_topk.merge.launches``); per-store attribution of scans
-is ``StoreStats.kernel_launches``.
+count CUDA kernel launches only; the merge and the collective count
+their calls apart (``kernels.mips_topk.merge.launches``,
+``kernels.mips_topk.collective.launches``: one a collective call, as
+the JAX package counts its one ``shard_map`` launch); per-store
+attribution of scans is ``StoreStats.kernel_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -42,6 +50,8 @@ _RESCORE_LAUNCHES = global_registry().counter(
     "kernels.mips_rescore.launches")
 _MERGE_LAUNCHES = global_registry().counter(
     "kernels.mips_topk.merge.launches")
+_COLLECTIVE_LAUNCHES = global_registry().counter(
+    "kernels.mips_topk.collective.launches")
 
 # per-shard candidate padding: a value below every real (or MASK_BIAS-
 # masked) score and a sequence number above every real row's, so padded
@@ -61,11 +71,22 @@ def reset_launch_count() -> None:
     _LAUNCHES.reset()
     _RESCORE_LAUNCHES.reset()
     _MERGE_LAUNCHES.reset()
+    _COLLECTIVE_LAUNCHES.reset()
 
 
 def merge_launch_count() -> int:
     """``merge_sharded_topk`` calls since the last reset."""
     return _MERGE_LAUNCHES.count
+
+
+def collective_launch_count() -> int:
+    """Collective calls (``sharded_mips_topk``,
+    ``sharded_quantized_topk``) since the last reset."""
+    return _COLLECTIVE_LAUNCHES.count
+
+
+def count_collective() -> None:
+    _COLLECTIVE_LAUNCHES.inc()
 
 
 def launch_count() -> int:
@@ -254,3 +275,61 @@ def merge_sharded_topk(vals: torch.Tensor, seqs: torch.Tensor,
                           stable=True)[:, :k]
     _MERGE_LAUNCHES.inc()
     return flat_v.gather(1, order), flat_s.gather(1, order)
+
+
+def gather_merge_topk(vals: torch.Tensor, seqs: torch.Tensor, k: int,
+                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collective's second half: this rank's ``(s_local, b, kk)``
+    scores and int32 sequence numbers, all-gathered over ``group``
+    (one gather of both, as one int32 block) into the ``(S, b, kk)``
+    candidates of every slot in slot order, then merged to the global
+    ``(b, k)`` -- the same result on every rank.  Without a group the
+    candidates are every slot's already and are merged as they are."""
+    if group is None:
+        return merge_sharded_topk(vals, seqs, k)
+    kk = vals.shape[2]
+    both = group.all_gather(torch.cat([vals.view(torch.int32), seqs],
+                                      dim=2))
+    return merge_sharded_topk(both[..., :kk].contiguous()
+                              .view(torch.float32),
+                              both[..., kk:].contiguous(), k)
+
+
+def local_slot_scans(q_aug: torch.Tensor, db_local: torch.Tensor,
+                     seq_local: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each local slot's top ``k`` by the kernel on the slot's own view
+    (the loop route's scan, ``store.slot_topk``, at the same k), its
+    rows mapped to global sequence numbers: ``(s_local, b, k)``."""
+    vals: List[torch.Tensor] = []
+    seqs: List[torch.Tensor] = []
+    for j in range(db_local.shape[0]):
+        v, i = mips_topk(q_aug, db_local[j], k)
+        vals.append(v)
+        seqs.append(seq_local[j][i.long()])
+    return torch.stack(vals), torch.stack(seqs)
+
+
+def sharded_mips_topk(q: torch.Tensor, db_local: torch.Tensor,
+                      seq_local: torch.Tensor, k_shard: int, k_out: int,
+                      flag_bias: Tuple[float, ...], *, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collective sharded top-k over a process group: the JAX package's
+    one ``shard_map`` launch, as one call on every rank.
+
+    ``db_local`` is this rank's ``(s_local, cap, d + F)`` share of the
+    store's stacked buffer and ``seq_local`` its ``(s_local, cap)`` int32
+    sequence plane (``S = s_local * world_size`` slots in all, the same
+    capacity everywhere).  The augmented query block is built once; each
+    local slot is scanned with ``mips_topk`` at ``k_shard``; the
+    candidates are gathered and merged (``gather_merge_topk``).  Exact
+    whenever ``S * k_shard >= k_out``.  Returns the merged ``(vals,
+    seqs)``, the same on every rank; the caller maps sequence numbers to
+    ids."""
+    s_local, cap, _ = db_local.shape
+    assert k_shard <= cap and s_local * group.world_size * k_shard >= \
+        k_out, (tuple(db_local.shape), group.world_size, k_shard, k_out)
+    count_collective()
+    q_aug = augment_queries(q, flag_bias).contiguous()
+    vals, seqs = local_slot_scans(q_aug, db_local, seq_local, k_shard)
+    return gather_merge_topk(vals, seqs, k_out, group)

@@ -46,7 +46,7 @@ from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.hamming_topk.ops import hamming_topk
 from repro_torch.kernels.lsh_hash.ops import lsh_hash
 from repro_torch.kernels.mips_topk.ops import augment_queries, \
-    mips_rescore
+    count_collective, gather_merge_topk, mips_rescore
 
 # db-side flag word: group all ones = flagged (0xFFFFFFFF as int32)
 FLAG_SET = -1
@@ -156,3 +156,34 @@ def quantized_flagged_topk(q: torch.Tensor, db_flagged: torch.Tensor,
     q_aug, qc = prepare_queries(q, flag_bias, planes, spec)
     return two_stage_topk(q_aug, qc, db_flagged, codes, int(k),
                           int(n_coarse))
+
+
+def sharded_quantized_topk(q: torch.Tensor, db_local: torch.Tensor,
+                           codes_local: torch.Tensor,
+                           seq_local: torch.Tensor, planes: torch.Tensor,
+                           k_shard: int, k_out: int, n_coarse: int,
+                           flag_bias: Tuple[float, ...], spec: QuantSpec,
+                           *, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-stage twin of ``sharded_mips_topk``: the query block and
+    its codes made once a call, then on each of this rank's slots the
+    coarse scan over its ``(cap, n_words)`` codes (``hamming_topk``)
+    and the rescore of those C rows (``mips_rescore``), the rows mapped
+    to global sequence numbers, and the same gather and merge
+    (``gather_merge_topk``); one count on the collective counter."""
+    s_local, cap, _ = db_local.shape
+    assert tuple(codes_local.shape) == (s_local, cap, spec.n_words), \
+        (tuple(codes_local.shape), tuple(db_local.shape), spec)
+    assert k_shard <= n_coarse <= cap and \
+        s_local * group.world_size * k_shard >= k_out, \
+        (tuple(db_local.shape), group.world_size, k_shard, n_coarse,
+         k_out)
+    count_collective()
+    q_aug, qc = prepare_queries(q, flag_bias, planes, spec)
+    vals, seqs = [], []
+    for j in range(s_local):
+        v, r = two_stage_topk(q_aug, qc, db_local[j], codes_local[j],
+                              int(k_shard), int(n_coarse))
+        vals.append(v)
+        seqs.append(seq_local[j][r.long()])
+    return gather_merge_topk(torch.stack(vals), torch.stack(seqs),
+                             int(k_out), group)

@@ -19,6 +19,11 @@ As in the JAX package, a snapshot holds no ``"quant"`` entry: a
 quantized store restores exact unless the caller passes
 ``quantized=True`` and the scan settings in ``store_kw``.
 
+A store on a process group snapshots from every rank (``state_dict``
+gathers the rows) but only rank 0 writes, and every rank learns the
+step it wrote; a snapshot restores under a group of any size, or under
+none, as the JAX package's restores under any mesh.
+
 Snapshot steps are monotone; each manifest records the index epoch.
 """
 from __future__ import annotations
@@ -27,6 +32,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.store import CheckpointManager, \
     load_checkpoint, load_manifest
@@ -80,9 +86,16 @@ class LifecycleManager:
     def report(self) -> ShardLoadReport:
         return ShardLoadReport.from_store(self.store)
 
+    @property
+    def _group(self):
+        return getattr(self.store, "group", None)
+
     def wait(self) -> None:
-        """Join the async checkpoint writer (re-raises its error)."""
+        """Join the async checkpoint writer (re-raises its error); over
+        a group, every rank returns once rank 0's write is on disk."""
         self.ckpt.wait()
+        if self._group is not None:
+            self._group.barrier()
 
     def snapshot(self, block: bool = False) -> int:
         """Persist the store (and any in-flight migration's staged
@@ -108,6 +121,9 @@ class LifecycleManager:
                                   "built": len(mig_state["built"])}
             tree["migration"] = [_shard_tree(s)
                                  for s in mig_state["built"]]
+        group = self._group
+        if group is not None and group.rank != 0:
+            return self._rank0_step(group, None)
         # join any in-flight async write FIRST: its step is not on disk
         # yet, and numbering the next step without it would land two
         # snapshots on one step, the first silently overwritten
@@ -117,14 +133,25 @@ class LifecycleManager:
             self.ckpt.save(step, tree, extra)
         else:
             self.ckpt.save_async(step, tree, extra)
-        return step
+        return step if group is None else self._rank0_step(group, step)
+
+    @staticmethod
+    def _rank0_step(group, step: Optional[int]) -> int:
+        """Rank 0's snapshot step, on every rank of ``group``."""
+        got = torch.tensor([-1 if step is None else step],
+                           dtype=torch.int64, device=group.device)
+        return int(group.broadcast(got, 0).item())
 
     # ------------------------------------------------------------------
-    def restore(self, graph, *, device=None, step: Optional[int] = None,
+    def restore(self, graph, *, group=None, device=None,
+                step: Optional[int] = None,
                 n_shards: Optional[int] = None, resume: bool = True,
                 **store_kw) -> AnyStore:
-        """Rebuild the store from the latest (or given) snapshot on
-        ``device`` (None: the managed store's device).
+        """Rebuild the store from the latest (or given) snapshot, on
+        ``group``'s ranks when given, else on ``device`` (None: the
+        managed store's device).  Over a group, call ``wait()`` after
+        the snapshot and before the restore, so rank 0's write is on
+        disk for every rank.
 
         ``n_shards`` (None = keep the snapshot layout) reshards on load;
         a persisted half-finished migration is re-staged and resumed
@@ -154,8 +181,11 @@ class LifecycleManager:
         else:
             state["n_shards"] = n_snap
             state["shards"] = shard_states
-        device = self.store.device if device is None else device
-        store = store_from_state(state, graph, device=device,
+        if group is not None:
+            device = group.device
+        elif device is None:
+            device = self.store.device
+        store = store_from_state(state, graph, group=group, device=device,
                                  n_shards=n_shards, **store_kw)
         store.epoch = int(extra.get("epoch", 0))
         if mig_meta and hasattr(store, "install_epoch"):
@@ -163,7 +193,7 @@ class LifecycleManager:
                      for t in tree.get("migration", [])] \
                 if resume else []
             store._migration = ShardMigration(
-                store, ReshardPlan(**mig_meta["plan"]),
+                store, ReshardPlan(**mig_meta["plan"]), group=group,
                 built_states=built)
         # carry the attached policy over to the restored store (a new
         # object: store_from_state always constructs a fresh one)

@@ -24,7 +24,9 @@ bitwise identical to a store freshly built at the target shard count.
 
 A store's lifecycle policy (``attach_lifecycle``) starts migrations
 from ``refresh()``, which then drives one ``step()`` per call and the
-install.  ``Resharder`` runs a whole migration at once
+install.  A store on a process group builds its staging store on the
+same group (each rank loading its own target slots from the gathered
+rows), so every rank installs the same epoch.  ``Resharder`` runs a whole migration at once
 (``EraRAG.reshard``), pre-empting any policy migration in flight, and
 is the snapshot replayer (``from_state`` with a disagreeing shard
 count).
@@ -110,7 +112,8 @@ def _maintenance_kw(src: AnyStore, kw: dict) -> dict:
     scan settings filled in where not given: the code plane rides the
     epoch swap (``load_state`` re-hashes the replayed rows)."""
     kw = dict(kw)
-    kw.setdefault("device", src.device)
+    group = kw.get("group")
+    kw.setdefault("device", src.device if group is None else group.device)
     kw.setdefault("compact_threshold", src._compact_threshold)
     kw.setdefault("min_capacity", src._group.min_capacity)
     kw.setdefault("quantized", src.quantized)
@@ -132,10 +135,11 @@ class ShardMigration:
     ``built_states`` resumes a half-finished migration from persisted
     staged shards (``LifecycleManager.restore``): the target shards
     already built load from the snapshot, the rest replay from the
-    source."""
+    source.  The staging store lives on ``group`` when given, else on
+    the source store's group (if any)."""
 
     def __init__(self, store: AnyStore, plan: ReshardPlan, *,
-                 store_kw: Optional[dict] = None,
+                 group=None, store_kw: Optional[dict] = None,
                  built_states: Optional[List[dict]] = None):
         self.store = store
         self.plan = plan
@@ -144,7 +148,7 @@ class ShardMigration:
         # to the source store's private routing counters
         self.owners = store._router.many(list(self.rows["ids"]),
                                          plan.n_to)
-        self.staging = self._make_staging(store_kw or {})
+        self.staging = self._make_staging(group, store_kw or {})
         self.built: List[int] = []
         for sh_state in (built_states or []):
             self.staging._shards[len(self.built)].load_state(sh_state)
@@ -152,9 +156,11 @@ class ShardMigration:
         if self.done:
             self._finalize()
 
-    def _make_staging(self, store_kw: dict) -> ShardedVectorStore:
+    def _make_staging(self, group, store_kw: dict) -> ShardedVectorStore:
         src = self.store
-        kw = _maintenance_kw(src, store_kw)
+        if group is None:
+            group = store_kw.get("group", getattr(src, "group", None))
+        kw = _maintenance_kw(src, {**store_kw, "group": group})
         if isinstance(src, ShardedVectorStore):
             kw.setdefault("collective", src.collective)
         return ShardedVectorStore(src._graph, n_shards=self.plan.n_to,
@@ -204,24 +210,30 @@ class ShardMigration:
     def state_dict(self) -> dict:
         """Persistable migration progress: the plan plus the staged
         target shards built so far (the resume payload)."""
+        stack = self.staging._group.host_stack()
         return {"plan": self.plan.to_dict(),
-                "built": [self.staging._shards[s].state_dict()
+                "built": [self.staging._shards[s].state_dict(stack)
                           for s in self.built]}
 
 
 class Resharder:
     """Synchronous resharding + snapshot replay.
 
-    ``device`` and ``store_kw`` parameterize the staging store; anything
-    not given is inherited from the source store (device, collective
-    flag, compaction threshold, growth floor, scan settings)."""
+    ``group``, ``device`` and ``store_kw`` parameterize the staging
+    store; anything not given is inherited from the source store (its
+    group, device, collective flag, compaction threshold, growth floor,
+    scan settings)."""
 
-    def __init__(self, device=None, **store_kw):
+    def __init__(self, group=None, device=None, **store_kw):
+        self.group = group
         self.device = device
         self.store_kw = store_kw
 
     def _kw(self) -> dict:
         kw = dict(self.store_kw)
+        if self.group is not None:
+            kw["group"] = self.group
+            kw["device"] = self.group.device
         if self.device is not None:
             kw["device"] = self.device
         return kw

@@ -1727,3 +1727,67 @@ def test_phi3_reduced_loss_and_serving_on_card_match_cpu(cuda):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the sharded store's collective query: two ranks on the card
+# ---------------------------------------------------------------------------
+
+def _collective_on_card(group):
+    """One rank of a two-rank group: the same ``EraRAG`` on the group and
+    without one (each rank's store holding two of the four slots), exact
+    and quantized; the hits of the collective, of the loop under the
+    group and of the group-less store, and the kernels each collective
+    call launched on this rank."""
+    from repro_torch.core.erarag import EraRAG
+    from repro_torch.kernels.common import resolve_device
+    corpus = SyntheticCorpus.generate(n_docs=60, n_topics=6, seed=0)
+    questions = [qa.question for qa in corpus.qa[:16]]
+    out = {"backend": group.backend, "device": str(group.device)}
+    for quantized in (False, True):
+        cfg = EraRAGConfig(**{**LIFE_CFG, "index_shards": 4},
+                           quantized_scan=quantized)
+        on_group = EraRAG(cfg, HashingEmbedder(dim=128), group=group)
+        plain = EraRAG(cfg, HashingEmbedder(dim=128),
+                       device=resolve_device(str(group.device)))
+        for rag in (on_group, plain):
+            rag.insert_docs(corpus.docs)
+        q = np.asarray(plain.embedder.encode(questions), np.float32)
+        on_group.store.refresh()
+        counts = (mips_ops.launch_count, ham_ops.launch_count,
+                  mips_ops.rescore_launch_count,
+                  mips_ops.collective_launch_count)
+        before = [c() for c in counts]
+        coll = _hit_bits(on_group.store, q)
+        launched = [c() - b for c, b in zip(counts, before)]
+        active = on_group.store.collective_active
+        on_group.store.collective = False
+        loop = _hit_bits(on_group.store, q)
+        out[quantized] = {"active": active,
+                          "local_slots": on_group.store._group.buf.shape[0],
+                          "coll": coll, "loop": loop,
+                          "plain": _hit_bits(plain.store, q),
+                          "launched": launched}
+    return out
+
+
+def test_collective_two_ranks_on_one_card(cuda):
+    """Two ranks on the card (gloo when they share it): exact and
+    quantized, the collective's hits are bitwise the loop's and the
+    group-less store's on every rank, and each collective call scans
+    this rank's two slots with the hand-written kernels."""
+    from repro_torch.launch.mesh import run_ranks
+    common.build_kernels(["lsh_hash", "mips_topk", "hamming_topk"])
+    out = run_ranks(_collective_on_card, 2, device="cuda", timeout_s=600)
+    for rank in out:
+        assert rank["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                                   else "gloo")
+        for quantized in (False, True):
+            rec = rank[quantized]
+            assert rec["active"] and rec["local_slots"] == 2
+            assert rec["coll"] == rec["loop"] == rec["plain"]
+            assert rec["coll"] == out[0][quantized]["coll"]
+            calls = 3          # one collective call a layer filter
+            assert rec["launched"] == (
+                [0, 2 * calls, 2 * calls, calls] if quantized
+                else [2 * calls, 0, 0, calls])

@@ -127,7 +127,7 @@ def test_port_imports_neither_jax_nor_reference():
         "'repro_torch.configs.mind', 'repro_torch.configs.gatedgcn', "
         "'repro_torch.configs.phi3_medium', 'repro_torch.models.recsys', "
         "'repro_torch.models.gnn', 'repro_torch.models.api', "
-        "'repro_torch.data.pipeline']\n"
+        "'repro_torch.data.pipeline', 'repro_torch.launch.mesh']\n"
         "bad += [m for m in slices if m not in sys.modules]\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('repro_torch')]), bad)\n"
