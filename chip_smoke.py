@@ -345,6 +345,20 @@ package.  Phases, each printing one JSON line:
                  attention on the tensor-core route only, and its
                  kernels at (1, 40, 10, 4096, 128) held against the
                  plain version and timed.
+    ``dryrun``   the dry run (``repro_torch.launch.dryrun``) on a
+                 one-device (1, 1) mesh, in a child process (the
+                 ``collective`` phase owns a real group), at the exact
+                 config, depth, batch and policy of five setups the
+                 phases above ran and measured: ``train_path``, dcn-v2
+                 and deepfm ``train_batch``, deepfm ``serve_bulk``
+                 (fp32 weights, as the phase holds them) and gatedgcn
+                 ``full_graph_sm``.  One line a setup: the predicted
+                 peak bytes against the phase's
+                 ``torch.cuda.max_memory_allocated`` less what was
+                 allocated before the setup made its weights (the ratio
+                 must lie in ``DRYRUN_PEAK_BAND``), the roofline's bound time
+                 against the measured step (the step's roofline share),
+                 and the predicted flops by dtype at the card's peaks.
 10. ``kernels``  one line listing every kernel with its numbers (the
                  ``lsh_hash`` and ``mips_topk`` entries with the
                  launches of phases 6c-6e and 6g-6j beside the main
@@ -380,6 +394,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
+MEASURED = {}               # the dryrun setups' peaks and step times
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 # __popc results per SM per clock at compute capability 9.0 (CUDA C++
@@ -3925,6 +3940,7 @@ def run_train_path():
 
     cfg = replace(llama3_8b(), n_layers=TRAIN_LAYERS)
     b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -3980,6 +3996,7 @@ def run_train_path():
                         cfg.n_layers)
     attn_s = (launches["flash_attention_fwd"] * mb_fwd_ms +
               launches["flash_attention_bwd"] * mb_bwd_ms) / TRAIN_STEPS / 1e3
+    MEASURED["train_path"] = {"peak": peak, "base": base, "step_s": step_s}
     emit("train_path", model="llama3-8b", reduced={"n_layers": [32, 4]},
          params=n_params, d_model=cfg.d_model, n_heads=cfg.n_heads,
          n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
@@ -4773,6 +4790,7 @@ def run_recsys(name):
     from repro_torch.models.api import get_api
 
     t0 = _phase_start()
+    base = torch.cuda.memory_allocated()
     cfg = get_arch(name)
     api = get_api(cfg)
     model, _ = api.init(torch.Generator(device="cuda").manual_seed(0))
@@ -4785,6 +4803,13 @@ def run_recsys(name):
     shapes = {s: _recsys_serve(name, cfg, api, model, cpu_model, s)
               for s in ("serve_p99", "serve_bulk", "retrieval_cand")}
     shapes["train_batch"] = _recsys_train(name, cfg, api, model, cpu_model)
+    MEASURED[f"{name} train_batch"] = {
+        "peak": shapes["train_batch"]["max_memory_allocated_bytes"],
+        "base": base,
+        "step_s": shapes["train_batch"]["median_step_s_after_first"]}
+    MEASURED[f"{name} serve_bulk"] = {
+        "peak": shapes["serve_bulk"]["max_memory_allocated_bytes"],
+        "base": base, "step_s": shapes["serve_bulk"]["ms"] / 1e3}
     tables = {k: [tuple(p.shape), p.numel() * p.element_size()]
               for k, p in model.named_parameters()
               if k in ("table", "first")}
@@ -4858,6 +4883,7 @@ def run_gnn(shape_name):
     from repro_torch.train.optimizer import make_train_step, opt_init
 
     t0 = _phase_start()
+    base = torch.cuda.memory_allocated()
     cfg = get_arch("gatedgcn")
     api = get_api(cfg)
     shape = cfg.shape(shape_name)
@@ -4930,6 +4956,9 @@ def run_gnn(shape_name):
                median_step_s_after_first=statistics.median(step_s[1:]),
                steps_max_memory_allocated_bytes=
                torch.cuda.max_memory_allocated())
+    MEASURED[f"gatedgcn {shape_name}"] = {
+        "peak": res["steps_max_memory_allocated_bytes"], "base": base,
+        "step_s": res["median_step_s_after_first"]}
     emit("gnn", model="gatedgcn", shape=shape_name, n_layers=cfg.n_layers,
          d_hidden=cfg.d_hidden, n_classes=cfg.n_classes,
          params=sum(p.numel() for p in model.parameters()),
@@ -5110,6 +5139,90 @@ def run_new_families(corpus):
 
 # ---------------------------------------------------------------------------
 
+# the dry run's predicted peak over the phase's max_memory_allocated
+DRYRUN_PEAK_BAND = (0.75, 1.33)
+
+
+def _dryrun_setups():
+    """(label, arch, shape name, config, policy) of each setup, at the
+    phases' exact configs."""
+    from repro_torch.common.registry import get_arch
+
+    lm = get_arch("llama3-8b")
+    train = replace(lm.shape("train_4k"), global_batch=TRAIN_SHAPE["b"])
+    lm = replace(lm, n_layers=TRAIN_LAYERS, shapes=(train,))
+    out = [("train_path", "llama3-8b", "train_4k", lm,
+            {"n_microbatches": 2})]
+    for name in ("dcn-v2", "deepfm"):
+        out.append((f"{name} train_batch", name, "train_batch",
+                    get_arch(name),
+                    {"n_microbatches": RECSYS_MICROBATCHES[name]}))
+    out.append(("deepfm serve_bulk", "deepfm", "serve_bulk",
+                get_arch("deepfm"), {"param_dtype": torch.float32}))
+    out.append(("gatedgcn full_graph_sm", "gatedgcn", "full_graph_sm",
+                get_arch("gatedgcn"), None))
+    return out
+
+
+def dryrun_child() -> int:
+    """The dry runs of ``_dryrun_setups`` on a (1, 1) mesh, on fake
+    tensors (no card): one JSON line, label -> result."""
+    sys.path.insert(0, str(SRC))
+    import repro_torch  # noqa: F401
+    from repro_torch.common.sharding import MeshShape
+    from repro_torch.launch.dryrun import lower_cell
+
+    one = MeshShape((1, 1), ("data", "model"))
+    out = {}
+    for label, arch, shape, cfg, policy in _dryrun_setups():
+        out[label] = lower_cell(arch, shape, cfg=cfg, mesh_sizes=one,
+                                whole_depth=True, policy=policy)
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def run_dryrun():
+    """The dry run's predictions against the setups' measured peaks and
+    steps (see the module docstring)."""
+    t0 = _phase_start()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--dryrun-child"], capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"dryrun: the child failed:\n{proc.stderr[-4000:]}")
+    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    lo, hi = DRYRUN_PEAK_BAND
+    for label, *_ in _dryrun_setups():
+        res, got = results[label], MEASURED[label]
+        terms = res["roofline"]
+        bound_s = max(terms["t_compute_s"], terms["t_memory_s"],
+                      terms["t_collective_s"])
+        # what the setup's own step held: the peak less what other
+        # phases left allocated (cuBLAS workspaces, caches) before the
+        # setup made its weights
+        step_peak = got["peak"] - got["base"]
+        ratio = res["memory"]["peak_bytes"] / step_peak
+        emit("dryrun", setup=label, mesh=res["mesh"],
+             n_microbatches=res["n_microbatches"],
+             predicted_peak_bytes=res["memory"]["peak_bytes"],
+             predicted_argument_bytes=res["memory"]["argument_bytes"],
+             max_memory_allocated_bytes=got["peak"],
+             allocated_before_setup_bytes=got["base"],
+             step_peak_bytes=step_peak,
+             peak_ratio=ratio, peak_band=list(DRYRUN_PEAK_BAND),
+             roofline=terms, bound_s=bound_s, step_s=got["step_s"],
+             roofline_share=bound_s / got["step_s"],
+             flops_by_dtype=res["flops_by_dtype"],
+             flops=res["flops_per_device"],
+             hbm_bytes=res["hbm_bytes_per_device"],
+             replicated_ops=res["replicated_ops"],
+             dryrun_s=res["seconds"])
+        check(lo <= ratio <= hi,
+              f"dryrun {label}: predicted peak {res['memory']['peak_bytes']}"
+              f" over measured {step_peak} = {ratio}, outside {lo}-{hi}")
+    emit("dryrun_total", setups=len(results), **_phase_end(t0))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5186,6 +5299,7 @@ def main() -> int:
     moe_ref_path.drive(run_moe_reference)
     moe_train_launches, moe_fa_case = run_moe_train()
     phi3_launches, phi3_fa_case = run_new_families(corpus)
+    run_dryrun()
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -5352,4 +5466,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dryrun-child"]:
+        sys.exit(dryrun_child())
     sys.exit(main())

@@ -195,19 +195,121 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
     return dq, dk, dv
 
 
+def _traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (or a DTensor over fake shards):
+    a dry run's stand-in for a tensor on the card, whatever device it
+    names, which takes the card's route to the ops' shape contracts."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    """``t`` contiguous and 16-byte aligned (a copy where it is not; a
+    traced tensor has no address to align)."""
     t = t.contiguous()
+    if _traced(t):
+        return t
     return t.clone() if t.data_ptr() % 16 else t
 
 
+# ---------------------------------------------------------------------------
+# the kernels as custom ops: a shape contract (``register_fake``), a flop
+# formula, and a DTensor sharding rule, so the dry run (launch/dryrun.py)
+# traces the card's route on fake tensors without the extension
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: Optional[float]
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd_cuda(q, k, v, causal, scale)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, scale):
+    b, hq, lq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, hq, lq),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            causal: bool, scale: Optional[float]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, do, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def attention_pairs(lq: int, lk: int, causal: bool) -> int:
+    """(query, key) pairs a head scores: every pair, or with ``causal``
+    the keys at or before each query's position ``lk - lq + i``."""
+    if not causal:
+        return lq * lk
+    off = lk - lq
+    return sum(min(lk, max(0, off + i + 1)) for i in range(lq))
+
+
+def _flops_fwd(q_shape, k_shape, v_shape, causal, scale, out_shape=None):
+    """QK^T and PV over the pairs the kernel scores: 4 b hq d pairs."""
+    b, hq, lq, d = q_shape
+    return 4 * b * hq * d * attention_pairs(lq, k_shape[2], causal)
+
+
+def _flops_bwd(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, scale, out_shape=None):
+    """S recomputed, then dV, dP, dQ and dK: five products a pair."""
+    b, hq, lq, d = q_shape
+    return 10 * b * hq * d * attention_pairs(lq, k_shape[2], causal)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.flash_attention_fwd,
+                          get_raw=False)(_flops_fwd)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_bwd,
+                          get_raw=False)(_flops_bwd)
+
+
+_register_flop_formulas()
+
+
+def register_dtensor_sharding() -> None:
+    """DTensor sharding rules of the two ops: every operand sharded on
+    batch (dim 0), or on heads (dim 1) where each rank's q heads are
+    whole groups of its kv heads (both head counts divide), or all
+    replicated.  Called by the dry run."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.dtensor_rules import register_op_rule
+
+    def singles(n_tensors: int):
+        return lambda: [[p] * n_tensors + [None, None]
+                        for p in (Replicate(), Shard(0), Shard(1))]
+    register_op_rule(torch.ops.repro_torch.flash_attention_fwd.default,
+                     singles(2 + 3), n_out=2)
+    register_op_rule(torch.ops.repro_torch.flash_attention_bwd.default,
+                     singles(3 + 6), n_out=3)
+
+
 class FlashAttention(torch.autograd.Function):
-    """The kernels as one differentiable op (CUDA tensors only)."""
+    """The kernels as one differentiable op (CUDA or traced tensors).
+    Traced tensors go through the custom ops, whose dispatch picks the
+    shape contracts; real ones call the ops' CUDA implementation
+    directly, the same kernels without the op dispatch's host time
+    (0.05-0.09 ms a call on an H100, PERF.md)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         q, k, v = (_kernel_layout(t) for t in (q, k, v))
-        o, lse = flash_attention_fwd_cuda(q, k, v, causal, scale)
+        fwd = torch.ops.repro_torch.flash_attention_fwd if _traced(q) \
+            else flash_attention_fwd_cuda
+        o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -215,8 +317,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, lse, _kernel_layout(do), ctx.causal, ctx.scale)
+        bwd = torch.ops.repro_torch.flash_attention_bwd if _traced(q) \
+            else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, lse, _kernel_layout(do), ctx.causal,
+                         ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -226,7 +330,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (b, hq, lq, d); k, v: (b, hkv, lk, d) -> (b, hq, lq, d) in q's
     dtype, differentiable in q, k and v."""
     _check(q, k, v, causal)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or _traced(q):
         return FlashAttention.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)

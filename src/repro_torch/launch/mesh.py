@@ -22,6 +22,13 @@ NCCL serves ranks that each have a card of their own; ranks that share a
 card, or run on the CPU, join a gloo group.  Every group is made with an
 explicit timeout, so a rank left alone in a collective raises instead of
 hanging.  Importing this module starts no group and no process.
+
+``make_production_mesh`` and ``make_local_mesh`` name the ranks of the
+default group as a ``DeviceMesh`` with the JAX package's axes: (16, 16)
+``data, model`` or (2, 16, 16) ``pod, data, model`` for production.  On
+an HGX H100 a 16-wide ``model`` axis spans two 8-card NVLink domains.
+Only the dry run (``launch/dryrun.py``) builds a production mesh, over
+a fake group of 256 or 512 ranks.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.common.sharding import MeshShape
 from repro_torch.kernels.common import resolve_device
 
 GROUP_TIMEOUT_S = 120.0      # a collective that waits longer raises
@@ -47,6 +55,47 @@ RUN_TIMEOUT_S = 600.0        # run_ranks kills every rank past this
 # thread pools of the numeric libraries, which ranks on the CPU share
 _THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
                 "MKL_NUM_THREADS")
+
+
+def production_mesh_shape(multi_pod: bool = False) -> MeshShape:
+    """The production mesh's axes and sizes (no group needed)."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def device_mesh(shape: MeshShape, device_type: str, exact: bool = True):
+    """A ``DeviceMesh`` over ranks ``0 .. prod(shape) - 1`` of the
+    default group, row-major (``jax.make_mesh``'s device order); every
+    rank of the group unless not ``exact``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh names the ranks of a process group: "
+                           "initialize one first")
+    world = dist.get_world_size()
+    if world < shape.size or (exact and world != shape.size):
+        raise ValueError(f"a {shape.sizes} mesh needs {shape.size} ranks, "
+                         f"the group has {dist.get_world_size()}")
+    ranks = torch.arange(shape.size, dtype=torch.int64).reshape(shape.sizes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=shape.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh over the default group, which must have 256
+    ranks (512 with ``multi_pod``)."""
+    return device_mesh(production_mesh_shape(multi_pod), device_type)
+
+
+def make_local_mesh(n_devices: Optional[int] = None, model: int = 1, *,
+                    device_type: str = "cuda"):
+    """A (n / model, model) ``data, model`` mesh over the default
+    group's ``n_devices`` ranks (all of them by default; tests)."""
+    n = n_devices or dist.get_world_size()
+    if n % model:
+        raise ValueError(f"{n} ranks do not divide a model axis of {model}")
+    return device_mesh(MeshShape((n // model, model), ("data", "model")),
+                        device_type, exact=False)
 
 
 @dataclass(frozen=True)

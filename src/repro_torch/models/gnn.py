@@ -22,7 +22,10 @@ a backward on the card repeat bitwise, and recomputing a checkpointed
 group gives the bits it gave the first time.  The reference sums with
 ``jax.ops.segment_sum`` in bf16; the port's single rounding is no less
 accurate (``tests/test_torch_gnn.py`` holds both to an fp64 numpy
-evaluation).
+evaluation).  The plan and the sums are custom ops
+(``segment_plan``, ``segment_sum``) with shape contracts and DTensor
+rules, so the dry run partitions them by edges: each rank plans and
+sums its own edges into partial node sums.
 
 The layers run in groups of ``remat_group`` under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` on a
@@ -45,6 +48,7 @@ from repro_torch.common.config import GNNConfig
 from repro_torch.common.utils import as_tensor
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.layers import ParamTree, dense_init
+from repro_torch.models.sharding_ctx import shard
 
 Batch = Dict[str, Any]
 EPS = 1e-6
@@ -104,18 +108,61 @@ class Segments(NamedTuple):
     lengths: torch.Tensor
 
 
+@torch.library.custom_op("repro_torch::segment_plan", mutates_args=())
+def _segment_plan(index: torch.Tensor, n: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the rows in segment order (a stable sort), the rows of each of
+    the ``n`` segments)."""
+    return torch.sort(index, stable=True).indices, \
+        torch.bincount(index, minlength=n)
+
+
+@_segment_plan.register_fake
+def _segment_plan_fake(index, n):
+    return index.new_empty(index.shape), index.new_empty((n,))
+
+
+@torch.library.custom_op("repro_torch::segment_sum", mutates_args=())
+def _segment_sum_op(x: torch.Tensor, perm: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    xs = x.index_select(0, perm).to(torch.float32)
+    return torch.segment_reduce(xs, "sum", lengths=lengths,
+                                axis=0).to(x.dtype)
+
+
+@_segment_sum_op.register_fake
+def _segment_sum_fake(x, perm, lengths):
+    return x.new_empty((lengths.shape[0],) + tuple(x.shape[1:]))
+
+
+def register_dtensor_sharding() -> None:
+    """DTensor sharding rules of the segment ops (called by the dry
+    run): rows sharded, each rank plans and sums its own rows, and the
+    segment lengths and sums are partial (their sum over ranks is the
+    whole); or features sharded over a replicated plan; or all
+    replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.dtensor_rules import register_op_rule
+    R, P = Replicate(), Partial()
+    register_op_rule(torch.ops.repro_torch.segment_plan.default,
+                     lambda: [[R, R, R, None],
+                              [Shard(0), P, Shard(0), None]], n_out=2)
+    register_op_rule(torch.ops.repro_torch.segment_sum.default,
+                     lambda: [[R, R, R, R], [P, Shard(0), Shard(0), P],
+                              [Shard(1), Shard(1), R, R]], n_out=1)
+
+
 def segments(index: torch.Tensor, n: int) -> Segments:
     index = index.to(torch.int64)
-    perm = torch.sort(index, stable=True).indices
-    return Segments(index, perm, torch.bincount(index, minlength=n))
+    perm, lengths = torch.ops.repro_torch.segment_plan(index, n)
+    return Segments(index, perm, lengths)
 
 
 def _segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
     """(E, ...) -> (n, ...): each segment's rows summed in row order in
     fp32, rounded once to ``x``'s dtype (no autograd)."""
-    xs = x.index_select(0, seg.perm).to(torch.float32)
-    return torch.segment_reduce(xs, "sum", lengths=seg.lengths,
-                                axis=0).to(x.dtype)
+    return torch.ops.repro_torch.segment_sum(x, seg.perm, seg.lengths)
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -157,16 +204,21 @@ def gather(x: torch.Tensor, seg: Segments) -> torch.Tensor:
 def _layer(lp: Dict[str, torch.Tensor], h: torch.Tensor, e: torch.Tensor,
            src: Segments, dst: Segments
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h_src = gather(h, src)                                # (E, d)
-    h_dst = gather(h, dst)
+    h_src = shard(gather(h, src), ("edges", None))        # (E, d)
+    h_dst = shard(gather(h, dst), ("edges", None))
     e_new = h_dst @ lp["D"] + h_src @ lp["E"] + e @ lp["C"]
+    e_new = shard(e_new, ("edges", None))
     eta = torch.sigmoid(e_new)
-    msg = eta * (h_src @ lp["B"])                         # (E, d)
+    msg = shard(eta * (h_src @ lp["B"]), ("edges", None))  # (E, d)
     agg = segment_sum(msg, dst)
     den = segment_sum(eta, dst)
+    agg = shard(agg, ("nodes", None))
+    den = shard(den, ("nodes", None))
     h_new = h @ lp["A"] + agg / (den + EPS)
     h = h + torch.relu(_norm(h_new, lp["ln_h"]))          # residual
+    h = shard(h, ("nodes", None))
     e = e + torch.relu(_norm(e_new, lp["ln_e"]))
+    e = shard(e, ("edges", None))
     return h, e
 
 
@@ -201,6 +253,7 @@ def forward(params: ParamTree, node_feat, edge_index, cfg: GNNConfig,
         edge_feat = torch.ones((edge_index.shape[1], 1), dtype=cdt,
                                device=dev)
     e = as_tensor(edge_feat, dev, cdt) @ params["enc_e"].to(cdt)
+    e = shard(e, ("edges", None))
     stacks = [params["layers"][k].to(cdt) for k in LAYER_KEYS]
 
     g = remat_group if remat_group and \

@@ -37,8 +37,10 @@ from repro_torch.common.config import LMConfig, MoEConfig
 from repro_torch.kernels.flash_attention.ops import \
     causal_blocked_attention, chunked_attention, dense_decode_attention, \
     extend_attention, flash_attention
+from repro_torch.models.sharding_ctx import shard, write_slice
 
 Params = Dict[str, torch.Tensor]
+KV_AXES = ("batch", "kv_heads", "kv_seq", None)     # K/V and their caches
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +264,7 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor, starts,
     if isinstance(starts, int):
         at = max(0, min(starts, max_len - l))
         if write is None:
-            cache[:, :, at:at + l] = new
+            write_slice(cache, new, 2, at)
         else:
             src, dst = write
             cache[dst, :, at:at + l] = new[src]
@@ -363,17 +365,21 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
     if kv_cache is None:
         if cache_len is not None:
             raise ValueError("cache_len without a kv_cache")
+        k, v = shard(k, KV_AXES), shard(v, KV_AXES)
         out = flash_attention(q, k, v, causal=causal)
     elif torch.is_tensor(cache_len) and cache_len.dim() >= 1:
         starts = cache_len.to(device=kv_cache["k"].device,
                               dtype=torch.int64)
         if l > 1:
             def attend(ck, cv):
-                return extend_attention(q, ck, cv, offsets=starts,
+                return extend_attention(q, shard(ck, KV_AXES),
+                                        shard(cv, KV_AXES), offsets=starts,
                                         block_k=block_k)
         else:
             def attend(ck, cv):
-                return dense_decode_attention(q, ck, cv, kv_len=starts + l)
+                return dense_decode_attention(q, shard(ck, KV_AXES),
+                                              shard(cv, KV_AXES),
+                                              kv_len=starts + l)
         out = _attend_written(kv_cache, k, v, starts, write, attend)
     elif l > 1:
         ck, cv = kv_cache["k"], kv_cache["v"]
@@ -387,13 +393,15 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
             out = chunked_attention(q, k, v, causal=causal,
                                     block_k=block_k)
     elif cache_len is None:
-        out = _attend_written(kv_cache, k, v, 0, write,
-                              lambda ck, cv: dense_decode_attention(q, ck,
-                                                                    cv))
+        out = _attend_written(
+            kv_cache, k, v, 0, write,
+            lambda ck, cv: dense_decode_attention(q, shard(ck, KV_AXES),
+                                                  shard(cv, KV_AXES)))
     else:
         n = int(cache_len) + l
 
         def attend(ck, cv):
+            ck, cv = shard(ck, KV_AXES), shard(cv, KV_AXES)
             return dense_decode_attention(
                 q, ck[:, :, :n], cv[:, :, :n],
                 kv_len=torch.full((b,), n, dtype=torch.int64,
@@ -487,13 +495,16 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor,
     t = xf.shape[0]
     e, k_top = moe.n_experts, moe.top_k
     logits = xf.to(torch.float32) @ router.to(torch.float32)     # (t, e)
+    logits = shard(logits, ("tokens", None))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, k_top)                    # (t, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     gates = torch.zeros_like(probs).scatter(1, gate_idx, gate_vals)
     # load-balance aux loss (Switch): e * sum_e (frac_tokens * frac_prob)
-    frac_tokens = torch.bincount(gate_idx.reshape(-1), minlength=e) \
-        .to(torch.float32) / t
+    frac_tokens = torch.zeros(e, dtype=torch.float32, device=xf.device) \
+        .scatter_add(0, gate_idx.reshape(-1),
+                      torch.ones(gate_idx.numel(), dtype=torch.float32,
+                                 device=xf.device)) / t
     frac_probs = probs.mean(dim=0)
     aux = moe.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
     sel_val, sel_idx = top_k(gates.T, moe_capacity(t, moe))     # (e, c)
@@ -514,14 +525,16 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     same order, with no atomic add (two runs are bitwise equal)."""
     b, l, d = x.shape
     t = b * l
-    xf = x.reshape(t, d)
+    xf = shard(x.reshape(t, d), ("tokens", None))
     r = moe_route(p["router"], xf, moe)
     e, c = r.sel_idx.shape
 
-    xe = xf[r.sel_idx.reshape(-1)].reshape(e, c, d)
+    xe = shard(xf[r.sel_idx.reshape(-1)].reshape(e, c, d),
+               ("experts", None, None))
     g = F.silu(torch.bmm(xe, p["w_gate"]))
     u = torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(g * u, p["w_down"])                           # (e, c, d)
+    ye = shard(torch.bmm(g * u, p["w_down"]),
+               ("experts", None, None))                          # (e, c, d)
 
     # slot[e, token]: the token's slot in expert e's selection, or -1
     ar = torch.arange(c, device=x.device).expand(e, c)
@@ -540,4 +553,4 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     out = out.to(x.dtype)
     if "shared" in p:
         out = out + swiglu_fwd(p["shared"], xf)
-    return out.reshape(b, l, d), r.aux
+    return shard(out.reshape(b, l, d), ("batch", "seq", "embed")), r.aux

@@ -11,10 +11,9 @@ package's draws over leaf by leaf.
 DIEN's two GRUs run as a Python loop over the history's steps (the
 reference's ``lax.scan``), each step masked past the row's
 ``hist_len``.  MIND's top-k is a stable descending sort, so exact ties
-go to the lowest index, as ``lax.top_k`` gives them; the reference's
-two-stage top-k for n divisible by 256 returns the same ids and values
-(a per-shard top-k keeps every candidate the global one takes), so one
-route serves both.
+go to the lowest index, as ``lax.top_k`` gives them; for n divisible by
+256 it runs in the reference's two stages (a top-k per block, then over
+the blocks'), which return the same ids and values as one.
 
 Inputs are tensors (or numpy arrays, moved to the weights' device);
 index inputs may be int32.
@@ -31,8 +30,10 @@ from repro_torch.common.config import RecSysConfig
 from repro_torch.common.utils import as_tensor, ceil_to
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.layers import ParamTree, dense_init
+from repro_torch.models.sharding_ctx import shard
 
 Batch = Dict[str, Any]
+N_SHARDS = 256      # MIND's candidate blocks (the reference's two stages)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +118,8 @@ def deepfm_init(cfg: RecSysConfig, generator, dtype=torch.float32):
 
 def deepfm_fwd(p: ParamTree, batch: Batch, cfg: RecSysConfig,
                offsets) -> torch.Tensor:
-    emb = embedding_lookup(p["table"], batch["sparse"], offsets)
+    emb = shard(embedding_lookup(p["table"], batch["sparse"], offsets),
+                ("batch", None, "embed"))
     first = embedding_lookup(p["first"], batch["sparse"],
                              offsets)[..., 0].sum(-1)     # (b,)
     s = emb.sum(dim=1)                                    # (b, d)
@@ -151,6 +153,7 @@ def dcnv2_fwd(p: ParamTree, batch: Batch, cfg: RecSysConfig,
     emb = embedding_lookup(p["table"], batch["sparse"], offsets)
     x0 = torch.cat([as_tensor(batch["dense"], emb.device, emb.dtype),
                     emb.reshape(emb.shape[0], -1)], dim=-1)
+    x0 = shard(x0, ("batch", None))
     x = x0
     for c in p["cross"]:
         x = x0 * (x @ c["w"] + c["b"]) + x     # DCN-v2 full-rank cross
@@ -207,7 +210,7 @@ def dien_fwd(p: ParamTree, batch: Batch, cfg: RecSysConfig,
     hist_ids = _ids(batch["hist"], table.device)
     b, s = hist_ids.shape
     tgt = table[_ids(batch["target"], table.device)]     # (b, d)
-    hist = table[hist_ids]                               # (b, S, d)
+    hist = shard(table[hist_ids], ("batch", "seq", "embed"))  # (b, S, d)
     hist_len = _ids(batch["hist_len"], table.device)
     valid = (torch.arange(s, device=table.device)[None, :] <
              hist_len[:, None])                          # (b, S)
@@ -251,6 +254,16 @@ def mind_init(cfg: RecSysConfig, generator, dtype=torch.float32):
     return params, axes, offsets
 
 
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``'s dtype rule: the operands promoted to a common
+    dtype (MIND's fp32 routing weights against a bf16 serving table
+    give fp32), where ``torch.einsum`` would refuse mixed dtypes."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
+
+
 def _squash(x: torch.Tensor) -> torch.Tensor:
     n2 = torch.sum(x * x, dim=-1, keepdim=True)
     return (n2 / (1.0 + n2)) * x * torch.rsqrt(n2 + 1e-9)
@@ -276,9 +289,9 @@ def mind_user_interests(p: ParamTree, hist, hist_len,
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(blog, dim=-1)                  # over capsules
         w = torch.where(valid[..., None], w, torch.zeros_like(w))
-        z = torch.einsum("bsk,bsd->bkd", w, low)
+        z = _einsum("bsk,bsd->bkd", w, low)
         u = _squash(z)                                   # (b, K, d)
-        blog = blog + torch.einsum("bkd,bsd->bsk", u, low)
+        blog = blog + _einsum("bkd,bsd->bsk", u, low)
     return u
 
 
@@ -288,8 +301,8 @@ def mind_fwd_train(p: ParamTree, batch: Batch, cfg: RecSysConfig,
     u = mind_user_interests(p, batch["hist"], batch["hist_len"], cfg)
     tgt = p["table"][_ids(batch["target"], u.device)]    # (b, d)
     # label-aware attention: weight interests by similarity^2 to target
-    att = torch.softmax(2.0 * torch.einsum("bkd,bd->bk", u, tgt), dim=-1)
-    user = torch.einsum("bk,bkd->bd", att, u)            # (b, d)
+    att = torch.softmax(2.0 * _einsum("bkd,bd->bk", u, tgt), dim=-1)
+    user = _einsum("bk,bkd->bd", att, u)                 # (b, d)
     logits = user @ tgt.T                                # in-batch
     labels = torch.arange(user.shape[0], device=u.device)
     # mean of logsumexp(row) - row[label], the reference's loss
@@ -311,9 +324,26 @@ def mind_score_candidates(p: ParamTree, batch: Batch, cfg: RecSysConfig,
     Batched dot over the candidate slab + max over interest capsules
     (the paper's serving rule); no per-candidate loop."""
     u = mind_user_interests(p, batch["hist"], batch["hist_len"], cfg)
-    cand = p["table"][_ids(batch["candidates"], u.device)]   # (n, d)
-    best = torch.einsum("bkd,nd->bkn", u, cand).amax(dim=1)   # (b, n)
-    return topk_lowest_index(best, min(top_k, best.shape[-1]))
+    cand = shard(p["table"][_ids(batch["candidates"], u.device)],
+                 ("candidates", None))                        # (n, d)
+    best = _einsum("bkd,nd->bkn", u, cand).amax(dim=1)   # (b, n)
+    k_eff = min(top_k, best.shape[-1])
+    b, n = best.shape
+    if n % N_SHARDS == 0 and n // N_SHARDS >= k_eff:
+        # the reference's two stages: a top-k per block of n / 256, then
+        # over the blocks' 256 k; a sharded candidate axis keeps the
+        # first stage local.  Same ids and values as one stage: each
+        # block keeps every candidate the whole top-k takes, ties to the
+        # lowest index (block-major, then in-block order)
+        blk = n // N_SHARDS
+        best_r = shard(best.reshape(b, N_SHARDS, blk),
+                       ("batch", "candidates", None))
+        v_loc, i_loc = topk_lowest_index(best_r, k_eff)      # (b, S, k)
+        base = (torch.arange(N_SHARDS, device=best.device) * blk)[None, :,
+                                                                 None]
+        vals, pos = topk_lowest_index(v_loc.reshape(b, -1), k_eff)
+        return vals, torch.gather((i_loc + base).reshape(b, -1), 1, pos)
+    return topk_lowest_index(best, k_eff)
 
 
 # ---------------------------------------------------------------------------
@@ -357,5 +387,5 @@ def serve_fn(params: ParamTree, batch: Batch, cfg: RecSysConfig, offsets):
         u = mind_user_interests(params, batch["hist"], batch["hist_len"],
                                 cfg)
         tgt = params["table"][_ids(batch["target"], u.device)]
-        return torch.einsum("bkd,bd->bk", u, tgt).amax(dim=-1)
+        return _einsum("bkd,bd->bk", u, tgt).amax(dim=-1)
     return torch.sigmoid(_FWD[cfg.interaction](params, batch, cfg, offsets))

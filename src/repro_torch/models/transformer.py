@@ -40,6 +40,10 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.layers import DecoderLayer, attention_fwd, \
     attention_init, dense_init, moe_fwd, moe_init, rmsnorm, swiglu_fwd, \
     swiglu_init
+from repro_torch.models import sharding_ctx
+from repro_torch.models.sharding_ctx import shard
+
+ACT_AXES = ("batch", "seq", "embed")          # the residual stream
 
 
 def block_size(cfg: LMConfig) -> int:
@@ -173,14 +177,14 @@ def _layer_fwd(layer: DecoderLayer, x: torch.Tensor, cfg: LMConfig,
     h, _ = attention_fwd(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
                          cfg, positions, causal=True, kv_cache=kv_cache,
                          cache_len=cache_len, write=write)
-    x = x + h
+    x = shard(x + h, ACT_AXES)
     y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if layer.is_moe:
         ff, aux = moe_fwd(lp["ffn"], y, cfg.moe)
     else:
         ff = swiglu_fwd(lp["ffn"], y)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ff, aux
+    return shard(x + ff, ACT_AXES), aux
 
 
 def _backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
@@ -203,7 +207,7 @@ def _backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
 
 def _logits(model: LM, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return x @ head.to(x.dtype)
+    return shard(x @ head.to(x.dtype), ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +227,14 @@ def loss_fn(model: LM, batch: Dict, cfg: LMConfig, *,
     tokens = _as_tokens(batch["tokens"], model.device)
     labels = _as_tokens(batch["labels"], model.device)
     b, l = tokens.shape
-    x = model.embed[tokens].to(compute_dtype)
+    x = shard(model.embed[tokens].to(compute_dtype), ACT_AXES)
     positions = torch.arange(l, device=model.device)
     x, aux, _ = _backbone(model, x, cfg, positions)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = _logits(model, x, cfg).to(torch.float32)
 
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logz = sharding_ctx.logsumexp(logits, dim=-1)
+    gold = sharding_ctx.gather_last(logits, labels)
     nll = (logz - gold).mean()
     loss = nll + aux
     return loss, {"nll": nll, "aux": aux}
@@ -250,8 +254,9 @@ def make_kv_cache(cfg: LMConfig, batch: int, max_len: int,
     finite value there contributes exactly 0."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    axes = kv_cache_axes(cfg)["k"]
+    return {"k": sharding_ctx.zeros(shape, axes, dtype, device),
+            "v": sharding_ctx.zeros(shape, axes, dtype, device)}
 
 
 def kv_cache_axes(cfg: LMConfig) -> Dict:
@@ -332,7 +337,7 @@ def prefill_padded(model: LM, tokens, lengths, cfg: LMConfig,
     elif slots is not None:
         dst = _index(slots, model.device)
         write = (torch.arange(len(dst), device=model.device), dst)
-    x = model.embed[tokens].to(compute_dtype)
+    x = shard(model.embed[tokens].to(compute_dtype), ACT_AXES)
     x = _cached_backbone(model, x, cfg, torch.arange(l, device=model.device),
                          caches, 0, write)
     return _logits(model, _last_real(x, lengths), cfg)[:, 0], caches
@@ -360,7 +365,7 @@ def prefill_extend(model: LM, tokens, lengths, offsets, caches: KVCache,
     offsets = _as_tokens(offsets, model.device)
     write = _own_rows(rows, b, model.device)
     positions = offsets[:, None] + torch.arange(l, device=model.device)
-    x = model.embed[tokens].to(compute_dtype)
+    x = shard(model.embed[tokens].to(compute_dtype), ACT_AXES)
     x = _cached_backbone(model, x, cfg, positions, caches, offsets, write)
     return _logits(model, _last_real(x, lengths), cfg)[:, 0], caches
 

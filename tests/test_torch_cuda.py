@@ -1033,6 +1033,49 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):
             q.transpose(2, 3).contiguous().transpose(2, 3), k, v, False)
 
 
+def test_flash_attention_custom_op_launches_the_kernel_once(cuda):
+    """The registered custom ops (``repro_torch::flash_attention_fwd`` /
+    ``_bwd``) launch the wrapper's kernels: one launch of each a call,
+    counted once, the same bits as the direct launch."""
+    q, k, v, do = _attn_inputs(1, 8, 2, 128, 128, 64, torch.bfloat16, cuda,
+                               11)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa_ops.reset_launch_count()
+    out = fa_ops.flash_attention(*leaves, causal=True)
+    assert (fa_ops.launch_count(), fa_ops.bwd_launch_count()) == (1, 0)
+    out.backward(do)
+    assert (fa_ops.launch_count(), fa_ops.bwd_launch_count()) == (1, 1)
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, True)
+    assert torch.equal(out, o)
+    for leaf, want in zip(leaves, fa_ops.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, True)):
+        assert torch.equal(leaf.grad, want)
+    got = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, None)
+    assert fa_ops.launch_count() == 3
+    assert torch.equal(got[0], o) and torch.equal(got[1], lse)
+
+
+def test_flash_attention_fake_route_gives_the_kernel_shapes(cuda):
+    """On fake card tensors (the dry run's) the ops' shape contracts
+    give the kernels' output shapes and dtypes, and nothing launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q, k, v, do = _attn_inputs(2, 8, 2, 64, 96, 128, torch.bfloat16, cuda,
+                               12)
+    o, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, True)
+    grads = fa_ops.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    fa_ops.reset_launch_count()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk, fv, fdo = (mode.from_tensor(t) for t in (q, k, v, do))
+        fo, flse = torch.ops.repro_torch.flash_attention_fwd(fq, fk, fv,
+                                                            True, None)
+        fgrads = torch.ops.repro_torch.flash_attention_bwd(
+            fq, fk, fv, fo, flse, fdo, True, None)
+    for fake, real in zip((fo, flse, *fgrads), (o, lse, *grads)):
+        assert (fake.shape, fake.dtype, fake.device) == \
+            (real.shape, real.dtype, real.device)
+    assert (fa_ops.launch_count(), fa_ops.bwd_launch_count()) == (0, 0)
+
+
 def test_lm_loss_and_grads_on_card_match_cpu(cuda):
     from repro_torch.configs.llama3_8b import llama3_8b
     from repro_torch.data.pipeline import synthetic_lm_batches

@@ -184,6 +184,29 @@ def test_mind_interests_and_capsule_norms():
     assert bool((norms < 1.0).all()), norms
 
 
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
+def test_mind_serves_bf16_weights_as_the_reference(shape):
+    """Serving weights in bf16 (the dry run's serving policy): the fp32
+    routing weights meet the bf16 table in the capsule products, which
+    promote to fp32 in both packages (the port refused the mixed
+    einsum before).  Within a bf16 step of the largest score."""
+    cfg_j, cfg, tree, _ = reduced("mind")
+    japi, api = JA.get_api(cfg_j), A.get_api(cfg)
+    batch = {k: np.asarray(v)
+             for k, v in japi.demo_batch(cfg_j.shape(shape), 3).items()}
+    bf16 = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    want = jax.jit(japi.step_fn(cfg_j.shape(shape)))(bf16, batch)
+    model = _port_model("mind").to(torch.bfloat16)
+    with torch.no_grad():
+        got = api.step_fn(cfg.shape(shape))(model, _torch_batch(batch))
+    got, want = (got[0], want[0]) if isinstance(want, tuple) else (got, want)
+    assert got.dtype == torch.float32
+    want = np.asarray(want, np.float64)
+    scale = float(np.abs(want).max())
+    assert scale >= 100 * TOL, scale
+    assert float(np.abs(got.numpy() - want).max()) <= 2.0 ** -7 * scale
+
+
 @pytest.mark.parametrize("n", [1_000_000, 1 << 20])
 def test_mind_top_k_ties_go_to_the_lowest_index(n):
     """Candidates drawn from the reduced 128-row vocab repeat thousands

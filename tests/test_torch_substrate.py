@@ -101,13 +101,20 @@ def test_partition_items_identical(seed, n, s_min, s_max):
 
 def test_port_imports_neither_jax_nor_reference():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
+        "import torch\n"
+        "testing = {m for m in sys.modules "
+        "if m.startswith('torch.testing._internal')}\n"
+        "env = dict(os.environ)\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "bad += sorted(m for m in sys.modules if m.startswith("
+        "'torch.testing._internal') and m not in testing)\n"
+        "bad += ['environ'] if dict(os.environ) != env else []\n"
         "slices = ['repro_torch.models.transformer', "
         "'repro_torch.models.convert', 'repro_torch.train.loop', "
         "'repro_torch.kernels.flash_attention.ops', "
@@ -127,7 +134,12 @@ def test_port_imports_neither_jax_nor_reference():
         "'repro_torch.configs.mind', 'repro_torch.configs.gatedgcn', "
         "'repro_torch.configs.phi3_medium', 'repro_torch.models.recsys', "
         "'repro_torch.models.gnn', 'repro_torch.models.api', "
-        "'repro_torch.data.pipeline', 'repro_torch.launch.mesh']\n"
+        "'repro_torch.data.pipeline', 'repro_torch.launch.mesh', "
+        "'repro_torch.common.sharding', 'repro_torch.models.sharding_ctx', "
+        "'repro_torch.distributed', "
+        "'repro_torch.distributed.comm_analysis', "
+        "'repro_torch.distributed.dtensor_rules', "
+        "'repro_torch.launch.dryrun']\n"
         "bad += [m for m in slices if m not in sys.modules]\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('repro_torch')]), bad)\n"
@@ -137,7 +149,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 80, out.stdout
+    assert n_modules >= 93, out.stdout
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
