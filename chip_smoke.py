@@ -348,10 +348,13 @@ package.  Phases, each printing one JSON line:
     ``dryrun``   the dry run (``repro_torch.launch.dryrun``) on a
                  one-device (1, 1) mesh, in a child process (the
                  ``collective`` phase owns a real group), at the exact
-                 config, depth, batch and policy of five setups the
-                 phases above ran and measured: ``train_path``, dcn-v2
-                 and deepfm ``train_batch``, deepfm ``serve_bulk``
-                 (fp32 weights, as the phase holds them) and gatedgcn
+                 config, depth, batch and policy of seven setups the
+                 phases above ran and measured: ``train_path``,
+                 ``moe_train`` (Adafactor, bf16 accumulation; the MoE
+                 dispatch and combine take their dry-run ops),
+                 ``phi3_train`` (GQA groups of 4), dcn-v2 and deepfm
+                 ``train_batch``, deepfm ``serve_bulk`` (fp32 weights,
+                 as the phase holds them) and gatedgcn
                  ``full_graph_sm``.  One line a setup: the predicted
                  peak bytes against the phase's
                  ``torch.cuda.max_memory_allocated`` less what was
@@ -4484,6 +4487,7 @@ def run_moe_train():
     t0 = _phase_start()
     cfg = replace(deepseek_moe_16b(), n_layers=MOE_TRAIN_LAYERS)
     b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
+    base = torch.cuda.memory_allocated()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4530,6 +4534,7 @@ def run_moe_train():
                           timed=True)
     tokens = b * l
     med = statistics.median(step_s[1:])
+    MEASURED["moe_train"] = {"peak": peak, "base": base, "step_s": med}
     emit("moe_train", model=cfg.name,
          reduced={"n_layers": [28, MOE_TRAIN_LAYERS]}, params=n_params,
          batch=b, seq_len=l, n_microbatches=n_mb, optimizer="adafactor",
@@ -5059,6 +5064,7 @@ def run_phi3_train():
     t0 = _phase_start()
     cfg = replace(get_arch("phi3-medium-14b"), n_layers=PHI3_TRAIN_LAYERS)
     b, l = TRAIN_SHAPE["b"], cfg.shape("train_4k").seq_len
+    base = torch.cuda.memory_allocated()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -5100,6 +5106,7 @@ def run_phi3_train():
                           cfg.d_head, True, torch.bfloat16, seed=43,
                           timed=True)
     med = statistics.median(step_s[1:])
+    MEASURED["phi3_train"] = {"peak": peak, "base": base, "step_s": med}
     tokens = b * l
     pairs = l * (l + 1) // 2
     model_flop = 3.0 * (2.0 * _matmul_params(cfg) * tokens +
@@ -5148,10 +5155,21 @@ def _dryrun_setups():
     phases' exact configs."""
     from repro_torch.common.registry import get_arch
 
-    lm = get_arch("llama3-8b")
-    train = replace(lm.shape("train_4k"), global_batch=TRAIN_SHAPE["b"])
-    lm = replace(lm, n_layers=TRAIN_LAYERS, shapes=(train,))
-    out = [("train_path", "llama3-8b", "train_4k", lm,
+    def cut(arch, layers):
+        cfg = get_arch(arch)
+        train = replace(cfg.shape("train_4k"), global_batch=TRAIN_SHAPE["b"])
+        return replace(cfg, n_layers=layers, shapes=(train,))
+
+    out = [("train_path", "llama3-8b", "train_4k",
+            cut("llama3-8b", TRAIN_LAYERS), {"n_microbatches": 2}),
+           # Adafactor with bf16 accumulation, as the phase trains
+           ("moe_train", "deepseek-moe-16b", "train_4k",
+            cut("deepseek-moe-16b", MOE_TRAIN_LAYERS),
+            {"n_microbatches": 2, "optimizer": "adafactor",
+             "accum_dtype": torch.bfloat16}),
+           # GQA groups of 4 (40 query heads over 10)
+           ("phi3_train", "phi3-medium-14b", "train_4k",
+            cut("phi3-medium-14b", PHI3_TRAIN_LAYERS),
             {"n_microbatches": 2})]
     for name in ("dcn-v2", "deepfm"):
         out.append((f"{name} train_batch", name, "train_batch",

@@ -15,7 +15,7 @@ starts), on the CPU:
 
     PYTHONPATH=src python scripts/dryrun_reference.py \\
         deepfm:serve_p99 llama3-8b:decode_32k [--multi-pod] [--no-probe] \\
-        [--all] [--out results/dryrun_reference]
+        [--all] [--out results/dryrun_reference] [--dots]
 """
 import os
 import sys
@@ -53,14 +53,41 @@ def convert_elements(hlo_text: str) -> int:
     return total
 
 
-def count_converts(calls: list) -> None:
+_DEF_RE = re.compile(r"(%[\w.\-]+) = \w+\[([\d,]*)\]")
+_DOT_RE = re.compile(r"= \w+\[([\d,]*)\][^ ]* dot\((%[\w.\-]+), "
+                     r"(%[\w.\-]+)\).*?lhs_contracting_dims=\{([\d,]*)\}")
+
+
+def dot_flops(hlo_text: str) -> dict:
+    """Every ``dot`` of an HLO module as "lhs x rhs -> out" -> flops
+    (2 x output elements x contracted size), summed over equal shapes:
+    the products a rank runs, to set beside the port's."""
+    def dims(text):
+        return [int(d) for d in text.split(",")] if text else []
+    shapes = dict(_DEF_RE.findall(hlo_text))
+    out: dict = {}
+    for o, lhs, rhs, contracting in _DOT_RE.findall(hlo_text):
+        n = 2
+        for d in dims(o):
+            n *= d
+        for i in dims(contracting):
+            n *= dims(shapes[lhs])[i]
+        key = f"[{shapes[lhs]}] x [{shapes[rhs]}] -> [{o}]"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def count_converts(calls: list, dots=None) -> None:
     """Have ``dryrun._cost_dict`` note each compiled program's convert
     elements in ``calls``, in call order (the full cell, then its
-    probes)."""
+    probes), and with ``dots`` (a list) each program's ``dot_flops``."""
     orig = dryrun._cost_dict
 
     def cost_dict(compiled):
-        calls.append(convert_elements(compiled.as_text()))
+        text = compiled.as_text()
+        calls.append(convert_elements(text))
+        if dots is not None:
+            dots.append(dot_flops(text))
         return orig(compiled)
     dryrun._cost_dict = cost_dict
 
@@ -95,10 +122,15 @@ def main() -> None:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--no-probe", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dots", action="store_true",
+                    help="add each probe program's dot products "
+                         "(\"dots\": shapes -> flops), the last probe's "
+                         "first: the depth a probe adds")
     args = ap.parse_args()
     dryrun.make_production_mesh = auto_production_mesh
     calls: list = []
-    count_converts(calls)
+    dots: list = [] if args.dots else None
+    count_converts(calls, dots)
     cells = [tuple(c.split(":")) for c in args.cells]
     if args.all:
         cells = [(a, s.name) for a in list_archs()
@@ -112,6 +144,8 @@ def main() -> None:
         for mp in meshes:
             t0 = time.time()
             calls.clear()
+            if dots is not None:
+                dots.clear()
             try:
                 res = with_converts(dryrun.lower_cell(
                     arch, shape, multi_pod=mp, probe=not args.no_probe),
@@ -124,6 +158,10 @@ def main() -> None:
                 traceback.print_exc(file=sys.stderr)
                 continue
             res["seconds"] = round(time.time() - t0, 2)
+            if dots:
+                res["dots"] = dict(sorted(dots[-1].items(),
+                                          key=lambda kv: -kv[1]))
+                res["probe_convert_elements"] = calls[1:]
             line = json.dumps(res, default=str)
             print(line, flush=True)
             if out_dir:

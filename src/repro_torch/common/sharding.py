@@ -111,8 +111,10 @@ class LogicalRules:
         return LogicalRules(merged)
 
     def spec(self, mesh, shape: Sequence[int],
-             logical_axes: Sequence[Optional[str]]) -> Spec:
-        """Resolve to a spec, applying the divisibility fallback."""
+             logical_axes: Sequence[Optional[str]], *,
+             audit: bool = True) -> Spec:
+        """Resolve to a spec, applying the divisibility fallback (logged
+        in ``fallbacks`` unless ``audit`` is false)."""
         if len(shape) != len(logical_axes):
             raise ValueError(f"shape {tuple(shape)} has {len(shape)} dims, "
                              f"logical axes {tuple(logical_axes)}")
@@ -145,8 +147,9 @@ class LogicalRules:
                     out.append(ok if len(ok) > 1 else ok[0])
                     used.update(ok)
                 else:
-                    self.fallbacks.append((str(logical), dim,
-                                           "->replicated"))
+                    if audit:
+                        self.fallbacks.append((str(logical), dim,
+                                               "->replicated"))
                     out.append(None)
                 continue
             out.append(axes if len(axes) > 1 else axes[0])

@@ -45,7 +45,7 @@ direction, 18 links (450 GB/s).
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -85,9 +85,21 @@ _NO_WORK = {"copy_", "_to_copy", "clone", "empty_like", "zeros_like",
             "ones_like", "full_like", "fill_", "zero_", "detach"}
 
 
+# custom op packet -> its element-wise flops from its arguments
+_ELEMENTWISE_FORMULAS: Dict[object, Callable] = {}
+
+
+def register_elementwise_formula(op, formula: Callable) -> None:
+    """Count ``formula(*args)`` element-wise flops a call of the custom
+    op ``op`` (an ``OpOverloadPacket``): a scatter-add's adds, which XLA
+    counts one a scattered element."""
+    _ELEMENTWISE_FORMULAS[op] = formula
+
+
 class CollectiveRecord(NamedTuple):
     kind: str               # all-reduce, all-gather, ...
     nbytes: int             # traffic under the convention above
+    shape: tuple = ()       # the local shape of its (first) output
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -119,7 +131,8 @@ class StepCounter(TorchDispatchMode):
     """Counts one rank's local work under DTensor (see the module
     docstring): ``flops`` by dtype, ``hbm_bytes``, ``collectives`` (a
     list of ``CollectiveRecord``), ``live_bytes`` and ``peak_bytes``,
-    and ``ops`` (op name -> calls)."""
+    ``ops`` (op name -> calls), ``op_flops`` (op name -> flops) and
+    ``largest_bytes`` (the largest storage it held)."""
 
     def __init__(self):
         super().__init__()
@@ -127,8 +140,10 @@ class StepCounter(TorchDispatchMode):
         self.hbm_bytes = 0
         self.collectives: List[CollectiveRecord] = []
         self.ops: Counter = Counter()
+        self.op_flops: Counter = Counter()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.largest_bytes = 0
         self._live: Dict[int, tuple] = {}    # storage -> (weak ref, bytes)
         self._suspended = 0
 
@@ -139,6 +154,8 @@ class StepCounter(TorchDispatchMode):
         from torch.distributed.tensor import DTensor
         if isinstance(t, DTensor):
             t = t._local_tensor
+        if t.device.type == "meta":         # no memory behind it
+            return
         self._sweep()
         st = t.untyped_storage()
         key = st._cdata
@@ -148,6 +165,7 @@ class StepCounter(TorchDispatchMode):
         self._live[key] = (StorageWeakRef(st), n)
         self.live_bytes += n
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self.largest_bytes = max(self.largest_bytes, n)
 
     def _sweep(self) -> None:
         """Forget the storages freed since the last op.  A storage's
@@ -195,11 +213,14 @@ class StepCounter(TorchDispatchMode):
                 n_in = sum(_nbytes(t) for t in ins)
                 n = {"in": n_in, "2in": 2 * n_in,
                      "out": sum(_nbytes(t) for t in outs)}[rule]
-                self.collectives.append(CollectiveRecord(kind, n))
+                self.collectives.append(CollectiveRecord(
+                    kind, n, tuple(outs[0].shape) if outs else ()))
         elif not func.is_view:
             self.hbm_bytes += sum(_nbytes(t) for t in ins) + \
                 sum(_nbytes(t) for t in outs)
+            before = self.total_flops
             self._count_flops(func, name, args, kwargs, out, ins, outs)
+            self.op_flops[f"{ns}.{name}"] += self.total_flops - before
         if not func.is_view:
             in_keys = {_storage_key(t) for t in ins}
             for t in outs:
@@ -212,6 +233,10 @@ class StepCounter(TorchDispatchMode):
             dt = str(ins[0].dtype).replace("torch.", "")
             self.flops[dt] += int(flop_registry[packet](
                 *args, **kwargs, out_val=out))
+            return
+        if packet in _ELEMENTWISE_FORMULAS:
+            self.flops["elementwise"] += int(
+                _ELEMENTWISE_FORMULAS[packet](*args, **kwargs))
             return
         base = name.rstrip("_")
         if name in _CONVERTS and ins and outs and \

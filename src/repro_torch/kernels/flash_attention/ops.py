@@ -195,7 +195,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
     return dq, dk, dv
 
 
-def _traced(t: torch.Tensor) -> bool:
+def traced(t: torch.Tensor) -> bool:
     """Whether ``t`` is a fake tensor (or a DTensor over fake shards):
     a dry run's stand-in for a tensor on the card, whatever device it
     names, which takes the card's route to the ops' shape contracts."""
@@ -207,7 +207,7 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (a copy where it is not; a
     traced tensor has no address to align)."""
     t = t.contiguous()
-    if _traced(t):
+    if traced(t):
         return t
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -282,8 +282,10 @@ _register_flop_formulas()
 def register_dtensor_sharding() -> None:
     """DTensor sharding rules of the two ops: every operand sharded on
     batch (dim 0), or on heads (dim 1) where each rank's q heads are
-    whole groups of its kv heads (both head counts divide), or all
-    replicated.  Called by the dry run."""
+    whole groups of its kv heads (both head counts divide, or the k/v
+    repeated to the q heads split as unevenly as q's:
+    ``sharding_ctx.gqa_heads``), or all replicated.  Called by the dry
+    run."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.distributed.dtensor_rules import register_op_rule
@@ -292,9 +294,9 @@ def register_dtensor_sharding() -> None:
         return lambda: [[p] * n_tensors + [None, None]
                         for p in (Replicate(), Shard(0), Shard(1))]
     register_op_rule(torch.ops.repro_torch.flash_attention_fwd.default,
-                     singles(2 + 3), n_out=2)
+                     singles(2 + 3), n_out=2, uneven=True)
     register_op_rule(torch.ops.repro_torch.flash_attention_bwd.default,
-                     singles(3 + 6), n_out=3)
+                     singles(3 + 6), n_out=3, uneven=True)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -307,7 +309,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         q, k, v = (_kernel_layout(t) for t in (q, k, v))
-        fwd = torch.ops.repro_torch.flash_attention_fwd if _traced(q) \
+        fwd = torch.ops.repro_torch.flash_attention_fwd if traced(q) \
             else flash_attention_fwd_cuda
         o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -317,7 +319,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = torch.ops.repro_torch.flash_attention_bwd if _traced(q) \
+        bwd = torch.ops.repro_torch.flash_attention_bwd if traced(q) \
             else flash_attention_bwd_cuda
         dq, dk, dv = bwd(q, k, v, o, lse, _kernel_layout(do), ctx.causal,
                          ctx.scale)
@@ -330,7 +332,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (b, hq, lq, d); k, v: (b, hkv, lk, d) -> (b, hq, lq, d) in q's
     dtype, differentiable in q, k and v."""
     _check(q, k, v, causal)
-    if q.device.type == "cuda" or _traced(q):
+    if q.device.type == "cuda" or traced(q):
         return FlashAttention.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)

@@ -61,9 +61,10 @@ from repro_torch.launch.mesh import device_mesh, make_production_mesh, \
 from repro_torch.models import transformer
 from repro_torch.models.api import ModelAPI, get_api
 from repro_torch.models.convert import param_leaves
-from repro_torch.models.sharding_ctx import activation_sharding
+from repro_torch.models.sharding_ctx import activation_sharding, \
+    contiguous_stride
 from repro_torch.train.optimizer import AdafactorState, AdamWState, \
-    adafactor_params, make_train_step, tree_leaves, tree_map
+    adafactor_params, make_train_step, tree_leaves
 
 TRAIN_KINDS = ("training", "sampled-training", "full-batch",
                "full-batch-large", "batched-small-graphs")
@@ -247,6 +248,11 @@ class Cell:
     batch: List[Leaf]
     opt: List[Leaf]
     model: nn.Module
+    policy: Optional[dict] = None       # overrides of ``_train_policy``
+
+    @property
+    def train_policy(self) -> dict:
+        return {**_train_policy(self.cfg), **(self.policy or {})}
 
     def leaves(self) -> List[Leaf]:
         return [lf for lf, _ in self.params] + self.batch + self.opt
@@ -267,13 +273,14 @@ def _build_cell(cfg, shape: ShapeSpec, api: ModelAPI, mesh,
     batch = batch_leaves(cfg, api, shape)
     train = shape.kind in TRAIN_KINDS and include_optimizer
     opt = opt_leaves([lf for lf, _ in params],
-                     _train_policy(cfg)["optimizer"]) if train else []
+                     {**_train_policy(cfg), **(policy or {})}["optimizer"]
+                     ) if train else []
     for lf in [lf for lf, _ in params] + batch + opt:
         lf.spec = rules.spec(mesh, lf.shape, lf.axes)
     n_micro = _n_micro(cfg, shape, mesh, n_micro_override or
                        (policy or {}).get("n_microbatches")) if train else 1
     return Cell(cfg, shape, api, pdt, n_micro, train, params, batch, opt,
-                model)
+                model, policy)
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +291,9 @@ def _dtensor(mesh, shape, dtype, spec, zeros: bool = False):
     loc = local_shape(mesh, shape, spec)
     local = torch.zeros(loc, dtype=dtype) if zeros else \
         torch.empty(loc, dtype=dtype)
-    stride = tuple(int(s) for s in torch.empty(
-        shape, device="meta").stride()) if shape else ()
     return DTensor.from_local(local, mesh, placements(mesh, spec),
                               run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+                              stride=contiguous_stride(shape))
 
 
 def _place_params(cell: Cell, mesh) -> None:
@@ -330,7 +335,7 @@ def _make_batch(cell: Cell, mesh) -> Dict[str, Any]:
 
 def _make_opt(cell: Cell, mesh):
     by_path = {lf.path: lf for lf in cell.opt}
-    kind = _train_policy(cell.cfg)["optimizer"]
+    kind = cell.train_policy["optimizer"]
     if kind == "adamw":
         path_of = {id(p): lf.path for lf, ps in cell.params for p in ps}
         mu, nu = [], []
@@ -342,14 +347,16 @@ def _make_opt(cell: Cell, mesh):
                                     spec, zeros=True))
         return AdamWState(step=0, mu=mu, nu=nu)
     tree = adafactor_params(cell.model)
-    leaves = [lf.path for lf, _ in cell.params]
-    paths = iter(sorted(leaves))
-    path_tree = tree_map(lambda _: next(paths), tree)
 
-    def state(name):
-        return tree_map(lambda path: _dtensor(
-            mesh, by_path[(name,) + path].shape, torch.float32,
-            by_path[(name,) + path].spec, zeros=True), path_tree)
+    def state(name, t=tree, path=()):
+        """The moment ``name`` of every leaf of ``t`` (at ``path``)."""
+        if isinstance(t, dict):
+            return {k: state(name, v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(state(name, v, path + (i,))
+                           for i, v in enumerate(t))
+        lf = by_path[(name,) + path]
+        return _dtensor(mesh, lf.shape, torch.float32, lf.spec, zeros=True)
     return AdafactorState(step=0, vr=state("vr"), vc=state("vc"),
                           v=state("v"))
 
@@ -357,7 +364,7 @@ def _make_opt(cell: Cell, mesh):
 def _step_fn(cell: Cell):
     step = cell.api.step_fn(cell.shape)
     if cell.train:
-        pol = _train_policy(cell.cfg)
+        pol = cell.train_policy
         train = make_train_step(step, n_microbatches=cell.n_micro,
                                 optimizer=pol["optimizer"],
                                 accum_dtype=pol["accum_dtype"])
@@ -549,9 +556,10 @@ def _replicate_fallback(audit: set):
 def _register_op_rules() -> None:
     """The DTensor rules of the port's custom ops on the cells' paths."""
     from repro_torch.kernels.flash_attention import ops as attention
-    from repro_torch.models import gnn
+    from repro_torch.models import gnn, layers
     attention.register_dtensor_sharding()
     gnn.register_dtensor_sharding()
+    layers.register_dtensor_sharding()
 
 
 def run_cell(cell: Cell, mesh, rules: LogicalRules) -> StepCounter:
@@ -709,8 +717,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``mesh_sizes``), with the reference's result keys.  ``cfg``
     overrides the registry's config of ``arch`` (a cut depth);
     ``whole_depth`` runs an LM's every layer instead of probing;
-    ``policy`` overrides the cell's ``param_dtype`` or
-    ``n_microbatches``."""
+    ``policy`` overrides the cell's ``param_dtype``,
+    ``n_microbatches``, ``optimizer`` or ``accum_dtype``."""
     cfg = cfg or get_arch(arch)
     shape = cfg.shape(shape_name)
     sizes = mesh_sizes or production_mesh_shape(multi_pod)

@@ -36,8 +36,9 @@ from torch import nn
 from repro_torch.common.config import LMConfig, MoEConfig
 from repro_torch.kernels.flash_attention.ops import \
     causal_blocked_attention, chunked_attention, dense_decode_attention, \
-    extend_attention, flash_attention
-from repro_torch.models.sharding_ctx import shard, write_slice
+    extend_attention, flash_attention, traced
+from repro_torch.models.sharding_ctx import attend_heads, fsdp_gathered, \
+    gqa_heads, merge_heads, shard, split_heads, write_slice
 
 Params = Dict[str, torch.Tensor]
 KV_AXES = ("batch", "kv_heads", "kv_seq", None)     # K/V and their caches
@@ -109,7 +110,8 @@ class _Weights(nn.Module):
                 torch.empty(shape, dtype=dtype, device=device)))
 
     def params(self, dtype: torch.dtype) -> Params:
-        return {n: p.to(dtype) for n, p in self.named_parameters()}
+        return {n: fsdp_gathered(p.to(dtype))
+                for n, p in self.named_parameters()}
 
 
 class ParamTree(nn.Module):
@@ -230,7 +232,8 @@ class DecoderLayer(nn.Module):
         the router too, which the MoE widens back to fp32)."""
         return {"attn": self.attn.params(dtype),
                 "ffn": self.ffn.params(dtype),
-                "ln1": self.ln1.to(dtype), "ln2": self.ln2.to(dtype)}
+                "ln1": fsdp_gathered(self.ln1.to(dtype)),
+                "ln2": fsdp_gathered(self.ln2.to(dtype))}
 
 
 # ---------------------------------------------------------------------------
@@ -355,9 +358,7 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, l, h, hd).transpose(1, 2)
-    k = k.reshape(b, l, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, l, hkv, hd).transpose(1, 2)
+    q, k, v = split_heads(q, h), split_heads(k, hkv), split_heads(v, hkv)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -366,20 +367,20 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
         if cache_len is not None:
             raise ValueError("cache_len without a kv_cache")
         k, v = shard(k, KV_AXES), shard(v, KV_AXES)
-        out = flash_attention(q, k, v, causal=causal)
+        out = flash_attention(*gqa_heads(q, k, v), causal=causal)
     elif torch.is_tensor(cache_len) and cache_len.dim() >= 1:
         starts = cache_len.to(device=kv_cache["k"].device,
                               dtype=torch.int64)
         if l > 1:
             def attend(ck, cv):
-                return extend_attention(q, shard(ck, KV_AXES),
-                                        shard(cv, KV_AXES), offsets=starts,
-                                        block_k=block_k)
+                return attend_heads(extend_attention, q,
+                                    shard(ck, KV_AXES), shard(cv, KV_AXES),
+                                    offsets=starts, block_k=block_k)
         else:
             def attend(ck, cv):
-                return dense_decode_attention(q, shard(ck, KV_AXES),
-                                              shard(cv, KV_AXES),
-                                              kv_len=starts + l)
+                return attend_heads(dense_decode_attention, q,
+                                    shard(ck, KV_AXES), shard(cv, KV_AXES),
+                                    kv_len=starts + l)
         out = _attend_written(kv_cache, k, v, starts, write, attend)
     elif l > 1:
         ck, cv = kv_cache["k"], kv_cache["v"]
@@ -387,28 +388,28 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: LMConfig,
         _write_kv(ck, k, start, write)
         _write_kv(cv, v, start, write)
         if causal and l >= 2048:
-            out = causal_blocked_attention(q, k, v,
-                                           q_chunk=max(2048, l // 8))
+            out = attend_heads(causal_blocked_attention, q, k, v,
+                               q_chunk=max(2048, l // 8))
         else:
-            out = chunked_attention(q, k, v, causal=causal,
-                                    block_k=block_k)
+            out = attend_heads(chunked_attention, q, k, v, causal=causal,
+                               block_k=block_k)
     elif cache_len is None:
         out = _attend_written(
             kv_cache, k, v, 0, write,
-            lambda ck, cv: dense_decode_attention(q, shard(ck, KV_AXES),
-                                                  shard(cv, KV_AXES)))
+            lambda ck, cv: attend_heads(dense_decode_attention, q,
+                                        shard(ck, KV_AXES),
+                                        shard(cv, KV_AXES)))
     else:
         n = int(cache_len) + l
 
         def attend(ck, cv):
             ck, cv = shard(ck, KV_AXES), shard(cv, KV_AXES)
-            return dense_decode_attention(
-                q, ck[:, :, :n], cv[:, :, :n],
+            return attend_heads(
+                dense_decode_attention, q, ck[:, :, :n], cv[:, :, :n],
                 kv_len=torch.full((b,), n, dtype=torch.int64,
                                   device=x.device))
         out = _attend_written(kv_cache, k, v, int(cache_len), write, attend)
-    out = out.transpose(1, 2).reshape(b, l, h * hd)
-    return out @ p["wo"], kv_cache
+    return merge_heads(out) @ p["wo"], kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +501,10 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor,
     gate_vals, gate_idx = top_k(probs, k_top)                    # (t, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     gates = torch.zeros_like(probs).scatter(1, gate_idx, gate_vals)
+    # the experts whole on each rank, and the gates' gradient too: split
+    # over them, DTensor's backward of the scatter gives a masked
+    # partial sum it then fails to reduce (at top-1)
+    gates = shard(gates, ("tokens", None))
     # load-balance aux loss (Switch): e * sum_e (frac_tokens * frac_prob)
     frac_tokens = torch.zeros(e, dtype=torch.float32, device=xf.device) \
         .scatter_add(0, gate_idx.reshape(-1),
@@ -509,6 +514,101 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor,
     aux = moe.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
     sel_val, sel_idx = top_k(gates.T, moe_capacity(t, moe))     # (e, c)
     return Routing(gate_idx, gates, sel_val, sel_idx, sel_val > 0.0, aux)
+
+
+# ---------------------------------------------------------------------------
+# the dispatch and combine of traced tensors, as custom ops: a shape
+# contract (``register_fake``), a flop formula and a DTensor sharding
+# rule, so the dry run (launch/dryrun.py) keeps the experts split and no
+# rank holds every token's contributions
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::moe_gather", mutates_args=())
+def _moe_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (t, d), idx (e, c) -> x[idx] (e, c, d): each expert's tokens."""
+    return x[idx.reshape(-1)].reshape(tuple(idx.shape) + (x.shape[1],))
+
+
+@_moe_gather.register_fake
+def _moe_gather_fake(x, idx):
+    return x.new_empty(tuple(idx.shape) + (x.shape[1],))
+
+
+@torch.library.custom_op("repro_torch::moe_scatter", mutates_args=())
+def _moe_scatter(y: torch.Tensor, idx: torch.Tensor, t: int
+                 ) -> torch.Tensor:
+    """y (e, c, d) -> (t, d): row ``idx[e, j]`` the sum of its
+    ``y[e, j]``, added in (expert, slot) order."""
+    d = y.shape[-1]
+    return torch.zeros((t, d), dtype=y.dtype, device=y.device).index_add_(
+        0, idx.reshape(-1), y.reshape(-1, d))
+
+
+@_moe_scatter.register_fake
+def _moe_scatter_fake(y, idx, t):
+    return y.new_empty((t, y.shape[-1]))
+
+
+class _Dispatch(torch.autograd.Function):
+    """``x[idx]``, its backward the scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.t = x.shape[0]
+        return torch.ops.repro_torch.moe_gather(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return torch.ops.repro_torch.moe_scatter(g, idx, ctx.t), None
+
+
+class _Combine(torch.autograd.Function):
+    """The scatter-add of each expert's outputs to their tokens, its
+    backward the gather."""
+
+    @staticmethod
+    def forward(ctx, y, idx, t):
+        ctx.save_for_backward(idx)
+        return torch.ops.repro_torch.moe_scatter(y, idx, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return torch.ops.repro_torch.moe_gather(g, idx), None, None
+
+
+def register_dtensor_sharding() -> None:
+    """DTensor sharding rules of the dispatch and combine ops (called by
+    the dry run): the experts split, each rank gathering its experts'
+    tokens from every token and scattering their outputs into a partial
+    sum over tokens; or the features split; or all replicated.  The
+    scatter counts one element-wise add an element it adds."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.comm_analysis import \
+        register_elementwise_formula
+    from repro_torch.distributed.dtensor_rules import register_op_rule
+    R = Replicate()
+    register_op_rule(torch.ops.repro_torch.moe_gather.default,
+                     lambda: [[R, R, R], [Shard(0), R, Shard(0)],
+                              [Shard(2), Shard(1), R]], n_out=1)
+    register_op_rule(torch.ops.repro_torch.moe_scatter.default,
+                     lambda: [[R, R, R, None],
+                              [Partial(), Shard(0), Shard(0), None],
+                              [Shard(1), Shard(2), R, None]], n_out=1)
+    register_elementwise_formula(torch.ops.repro_torch.moe_scatter,
+                                 lambda y, idx, t: y.numel())
+
+
+def _traced_combine(ye: torch.Tensor, r: Routing, t: int,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """The reference's combine as it partitions: each expert's outputs
+    times their gates (``sel_val``, 0 where the slot is not live),
+    scatter-added to their tokens ``idx`` (``r.sel_idx`` as the experts
+    are laid out) by ``_Combine``."""
+    w = (r.sel_val * r.live).to(ye.dtype)
+    return _Combine.apply(ye * w[..., None], idx, t)
 
 
 def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
@@ -522,19 +622,31 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     tensor in the compute dtype, in expert-major order.  Here each
     token gathers its k contributions, ordered by expert, and they are
     added one after another in the compute dtype: the same sums, in the
-    same order, with no atomic add (two runs are bitwise equal)."""
+    same order, with no atomic add (two runs are bitwise equal).
+
+    A traced tensor (the dry run) takes the dispatch and combine ops
+    (``_Dispatch``, ``_traced_combine``), which DTensor partitions by
+    experts: the per-token gather would need every expert's outputs on
+    each rank, and the whole (t, k, d) contribution tensor."""
     b, l, d = x.shape
     t = b * l
     xf = shard(x.reshape(t, d), ("tokens", None))
     r = moe_route(p["router"], xf, moe)
     e, c = r.sel_idx.shape
 
-    xe = shard(xf[r.sel_idx.reshape(-1)].reshape(e, c, d),
-               ("experts", None, None))
+    if traced(xf):
+        # each rank's experts' selections, then their tokens gathered
+        idx = shard(r.sel_idx, ("experts", None))
+        xe = _Dispatch.apply(xf, idx)
+    else:
+        xe = xf[r.sel_idx.reshape(-1)].reshape(e, c, d)
+    xe = shard(xe, ("experts", None, None))
     g = F.silu(torch.bmm(xe, p["w_gate"]))
     u = torch.bmm(xe, p["w_up"])
     ye = shard(torch.bmm(g * u, p["w_down"]),
                ("experts", None, None))                          # (e, c, d)
+    if traced(ye):
+        return _moe_out(p, _traced_combine(ye, r, t, idx), x, xf), r.aux
 
     # slot[e, token]: the token's slot in expert e's selection, or -1
     ar = torch.arange(c, device=x.device).expand(e, c)
@@ -550,7 +662,14 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     out = contrib[:, 0]
     for j in range(1, contrib.shape[1]):
         out = out + contrib[:, j]
+    return _moe_out(p, out, x, xf), r.aux
+
+
+def _moe_out(p: Params, out: torch.Tensor, x: torch.Tensor,
+             xf: torch.Tensor) -> torch.Tensor:
+    """The routed experts' (t, d) sum in ``x``'s dtype, plus the shared
+    experts, as (b, l, d) under the reference's constraint."""
     out = out.to(x.dtype)
     if "shared" in p:
         out = out + swiglu_fwd(p["shared"], xf)
-    return shard(out.reshape(b, l, d), ("batch", "seq", "embed")), r.aux
+    return shard(out.reshape(x.shape), ("batch", "seq", "embed"))

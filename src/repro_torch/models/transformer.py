@@ -205,9 +205,15 @@ def _backbone(model: LM, x: torch.Tensor, cfg: LMConfig,
     return x, aux, None
 
 
-def _logits(model: LM, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _logits(model: LM, x: torch.Tensor, cfg: LMConfig,
+            head_axes=None) -> torch.Tensor:
+    """``x`` times the head, vocab-sharded; ``head_axes`` constrains the
+    head (d, vocab) first."""
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return shard(x @ head.to(x.dtype), ("batch", "seq", "vocab"))
+    head = head.to(x.dtype)
+    if head_axes is not None:
+        head = shard(head, head_axes)
+    return shard(x @ head, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +237,11 @@ def loss_fn(model: LM, batch: Dict, cfg: LMConfig, *,
     positions = torch.arange(l, device=model.device)
     x, aux, _ = _backbone(model, x, cfg, positions)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    logits = _logits(model, x, cfg).to(torch.float32)
+    # the head gathered over its embed dim before the product, so that
+    # its gradient reduces there (FSDP's weight gather): left free,
+    # DTensor on a 3-D mesh gathers the batch instead and reduces whole
+    # logits
+    logits = _logits(model, x, cfg, (None, "vocab")).to(torch.float32)
 
     logz = sharding_ctx.logsumexp(logits, dim=-1)
     gold = sharding_ctx.gather_last(logits, labels)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.convert import param_tree
+from repro_torch.models.sharding_ctx import laid_out_as
 
 
 class AdamWState(NamedTuple):
@@ -321,6 +322,7 @@ def make_train_step(loss_fn: Callable, *,
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+        grads = [laid_out_as(g, p) for g, p in zip(grads, params)]
         lr = lr_schedule(opt_state.step) if lr_schedule else base_lr
         _, opt_state, om = opt_update(model, grads, opt_state, lr=lr,
                                       kind=optimizer,

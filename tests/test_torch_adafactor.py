@@ -40,6 +40,7 @@ from repro_torch.train import optimizer as O
 from repro_torch.train.loop import LoopConfig, run_training
 from test_torch_moe import jax_reduced
 from test_torch_train import _leaves, _rel_fro
+from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 NAME = "deepseek-moe-16b"
@@ -204,17 +205,30 @@ def _loss(cfg):
     return lambda m, b: T.loss_fn(m, b, cfg, compute_dtype=torch.float32)
 
 
+RESUME_LOOP = dict(base_lr=1e-2, log_every=0, optimizer="adafactor",
+                   n_microbatches=2)
+
+
+@pytest.fixture(scope="module")
+def unbroken(reduced):
+    """The 6 steps unbroken, once for both resume cases: (the run's
+    result, the trained model)."""
+    _, cfg, tree = reduced
+    model = params_from_numpy(tree, cfg, device=CPU)
+    make = synthetic_lm_batches(cfg.vocab_size, 2, 16, seed=5)
+    return run_training(_loss(cfg), model, make,
+                        LoopConfig(max_steps=6, **RESUME_LOOP)), model
+
+
 @pytest.mark.parametrize("stop,every", [(3, 3), (4, 2)],
                          ids=["blocking-save", "async-saves"])
 def test_adafactor_resume_is_bitwise_the_unbroken_run(tmp_path, reduced,
-                                                      stop, every):
+                                                      unbroken, stop,
+                                                      every):
     _, cfg, tree = reduced
     make = synthetic_lm_batches(cfg.vocab_size, 2, 16, seed=5)
-    loop = dict(base_lr=1e-2, log_every=0, optimizer="adafactor",
-                n_microbatches=2)
-    full_model = params_from_numpy(tree, cfg, device=CPU)
-    full = run_training(_loss(cfg), full_model, make,
-                        LoopConfig(max_steps=6, **loop))
+    loop = RESUME_LOOP
+    full, full_model = unbroken
     ck = str(tmp_path / "ck")
     first = run_training(_loss(cfg), params_from_numpy(tree, cfg, device=CPU),
                          make, LoopConfig(max_steps=stop, ckpt_every=every,

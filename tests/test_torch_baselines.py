@@ -23,6 +23,7 @@ from repro_torch.common.config import EraRAGConfig
 from repro_torch.core import baselines
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
+from torch_threads import one_blas_thread  # noqa: F401
 
 SCORE_TOL = 1e-6
 KW = dict(embed_dim=64, n_hyperplanes=8, s_min=3, s_max=9, max_layers=3,

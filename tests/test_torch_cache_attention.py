@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as JO
 from repro_torch.kernels.flash_attention import ops as O
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),

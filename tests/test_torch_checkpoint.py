@@ -30,6 +30,7 @@ from repro_torch.data.pipeline import synthetic_lm_batches
 from repro_torch.models import transformer as T
 from repro_torch.train.loop import LoopConfig, run_training
 from repro_torch.train.optimizer import AdamWState
+from torch_threads import one_blas_thread  # noqa: F401
 
 
 def _tree(seed: int = 0):

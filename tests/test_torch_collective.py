@@ -34,6 +34,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.kernels.mips_topk import ops as mips_ops
 from repro_torch.launch.mesh import local_data_group, run_ranks
 from repro_torch.lifecycle import LifecycleManager, Resharder
+from torch_threads import one_blas_thread  # noqa: F401
 
 WORLD = 4
 JAX_TOL = 1e-6      # the reference's batch-size drift (a reference gap)

@@ -24,15 +24,38 @@ the JAX package's, on the CPU.
   of a product to fp32 (deepfm's whole replicated table each step) and
   counts each conversion as a flop, which a bf16 product on the card
   does not do (``test_conversion_is_the_divergence`` counts that one op
-  both ways).
+  both ways).  No cell's peak may pass the H100's 80 GB.
+- *Partitioned programs on small fake groups* (``models/sharding_ctx``,
+  the custom ops' DTensor rules).  GQA heads: on a 16-wide ``model``
+  axis, with 32 query heads over 8 key/value heads and with 40 over 10
+  (which do not divide 16: split unevenly, 3 heads on the counted rank,
+  as GSPMD pads them to 48), a rank's attention flops are its heads'
+  share of the whole, on the training route (the kernels' custom ops)
+  and on the prefill route (the plain compositions), and DTensor
+  replicates no op.  MoE: deepseek's 64 experts over 16, a rank's
+  expert products are 1/16 of the whole and no buffer it holds is as
+  large as the (t, k, d) contributions of the per-token combine.  LM
+  head: on a (2, 2, 4) mesh a training step gathers the head's weight,
+  not the logits' rows or the vocab.  The dispatch and combine ops
+  equal the plain code they stand for.
+- *Against recorded reference lines.*  llama3-8b and deepseek-moe-16b
+  ``prefill_32k``, whose reference runs take about a minute each, are
+  held to the same checks against the reference's result lines in
+  ``tests/dryrun_reference_cells.json``, which names the ``jax`` version
+  and the command that made them; the test fails, naming that command,
+  where the installed ``jax`` differs.  These are the cells GQA's head
+  split and the MoE dispatch move most (LM prefill 7x the reference's
+  flops, deepseek 116 GB a device, before both were partitioned).
 - The dry run refuses to run beside a default group and leaves none.
 """
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -45,18 +68,24 @@ from jax.sharding import PartitionSpec as P
 from repro.distributed import hlo_analysis as JH
 from repro_torch.common.config import ShapeSpec
 from repro_torch.common.registry import get_arch
-from repro_torch.common.sharding import MeshShape
+from repro_torch.common.sharding import MeshShape, rules_for_family
 from repro_torch.distributed import comm_analysis as CA
 from repro_torch.distributed import collective_breakdown, roofline_terms
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import device_mesh
 from repro_torch.models import api as A
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from torch_threads import one_blas_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 REFERENCE_CELLS = (("deepfm", "serve_p99"), ("gatedgcn", "full_graph_sm"),
                    ("llama3-8b", "decode_32k"))
 FLOPS_BAND = 0.25       # |port / reference - 1|, conversions taken out
+RECORDED = json.loads((ROOT / "tests" / "dryrun_reference_cells.json")
+                      .read_text())
+RECORDED_CELLS = {(r["arch"], r["shape"]): r for r in RECORDED["cells"]}
 MATMUL = ("bfloat16", "float32")
 
 
@@ -279,12 +308,131 @@ def test_dry_run_refuses_a_group_and_leaves_none():
 
 
 # ---------------------------------------------------------------------------
+# the partitioned programs on small fake groups (these and the recorded
+# cells run while the reference's child computes its three cells)
+# ---------------------------------------------------------------------------
+MODEL16 = MeshShape((1, 16), ("data", "model"))
+B, D_HEAD = 2, 16
+
+
+def _loss_and_grads(cell):
+    """A training cell's step without its optimizer's update."""
+    step = cell.api.step_fn(cell.shape)
+    return lambda model, opt, batch: step(model, batch)[0].backward()
+
+
+def _step(cfg, shape: ShapeSpec, sizes: MeshShape):
+    """One counted step of ``cfg`` at ``shape`` on a fake group of
+    ``sizes``, one microbatch; a training step's loss and gradients
+    (its update adds no product)."""
+    rules = rules_for_family(cfg.family, shape.kind)
+    with D.fake_group(sizes.size), \
+            mock.patch.object(D, "_step_fn", _loss_and_grads) \
+            if shape.kind == "training" else contextlib.nullcontext():
+        mesh = device_mesh(sizes, "cpu")
+        cell = D._build_cell(cfg, shape, A.get_api(cfg), mesh, rules,
+                             include_optimizer=True, n_micro_override=1)
+        return D.run_cell(cell, mesh, rules)
+
+
+def _lm(arch, shape, **kw):
+    base = dict(n_layers=1, d_model=128, d_head=D_HEAD, d_ff=256,
+                vocab_size=512, shapes=(shape,))
+    return dataclasses.replace(get_arch(arch), **{**base, **kw})
+
+
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (40, 10)])
+@pytest.mark.parametrize("route", ["train", "prefill"])
+def test_gqa_attention_splits_query_heads(route, hq, hkv):
+    kind, l = {"train": ("training", 64), "prefill": ("inference-prefill",
+                                                      256)}[route]
+    shape = ShapeSpec("s", kind, seq_len=l, global_batch=B)
+    counter = _step(_lm("llama3-8b", shape, n_heads=hq, n_kv_heads=hkv),
+                    shape, MODEL16)
+    assert counter.replicated_ops == set()
+    mine = -(-hq // 16)                 # the counted rank's query heads
+    if route == "train":
+        pairs = FA.attention_pairs(l, l, True)
+        for op, per_pair in (("fwd", 4), ("bwd", 10)):
+            name = f"repro_torch.flash_attention_{op}"
+            assert counter.ops[name] >= 1
+            assert counter.op_flops[name] == counter.ops[name] * \
+                per_pair * B * mine * D_HEAD * pairs
+    else:
+        # QK^T and PV over one block of every key, in fp32 (the
+        # compositions' only fp32 products)
+        assert counter.flops["float32"] == 4 * B * mine * l * l * D_HEAD
+
+
+def test_moe_layer_keeps_the_experts_split():
+    t_shape = ShapeSpec("s", "training", seq_len=256, global_batch=B)
+    cfg = _lm("deepseek-moe-16b", t_shape, n_heads=8, n_kv_heads=8,
+              moe=dataclasses.replace(get_arch("deepseek-moe-16b").moe,
+                                      d_ff_expert=32), moe_every=1)
+    counter = _step(cfg, t_shape, MODEL16)
+    assert counter.replicated_ops == set()
+    moe, t, d = cfg.moe, B * 256, cfg.d_model
+    e, c, f = moe.n_experts, L.moe_capacity(t, moe), moe.d_ff_expert
+    assert e == 64
+    # three products a pass of the experts' (c, d) x (d, f): forward,
+    # its recompute under the layer's checkpoint, and the backward's
+    # two products each, on this rank's 4 experts
+    assert counter.op_flops["aten.bmm"] == 4 * 3 * 2 * (e // 16) * c * d * f
+    contrib = t * moe.top_k * d * 2             # (t, k, d) in bf16
+    assert counter.largest_bytes < contrib / 2
+
+
+def test_lm_head_gathers_no_vocab():
+    shape = ShapeSpec("s", "training", seq_len=64, global_batch=16)
+    v, d = 4096, 128
+    cfg = _lm("llama3-8b", shape, n_heads=4, n_kv_heads=4, d_ff=64,
+              vocab_size=v, d_model=d)
+    counter = _step(cfg, shape, MeshShape((2, 2, 4),
+                                          ("pod", "data", "model")))
+    gathers = [r.shape for r in counter.collectives
+               if r.kind == "all-gather"]
+    assert (d, v // 4) in gathers                  # the head's weight
+    for s in gathers:
+        assert v not in s
+        # the head's weight, over one FSDP axis or both; never rows of
+        # the logits (256 tokens a rank) or of their gradient
+        assert v // 4 not in s or (len(s) == 2 and s[0] <= d), s
+    # the head's products stay on this rank's vocab quarter: forward,
+    # input gradient and weight gradient over its 256 of 1024 tokens
+    assert counter.op_flops["aten.mm"] >= 3 * 2 * 256 * d * v // 4
+
+
+def test_moe_dispatch_and_combine_ops_are_the_plain_code():
+    cfg = get_arch("deepseek-moe-16b").reduced()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 40, cfg.d_model, generator=g).to(torch.bfloat16)
+    p = {k: w for k, w in L.moe_init(g, cfg.d_model, cfg.moe)
+         .params(torch.bfloat16).items() if k != "shared"}
+    want, _ = L.moe_fwd(p, x, cfg.moe)
+    xf = x.reshape(-1, cfg.d_model)
+    t = xf.shape[0]
+    r = L.moe_route(p["router"], xf, cfg.moe)
+    xe = torch.ops.repro_torch.moe_gather(xf, r.sel_idx)
+    assert torch.equal(xe, xf[r.sel_idx.reshape(-1)].reshape(xe.shape))
+    ye = torch.bmm(torch.nn.functional.silu(torch.bmm(xe, p["w_gate"])) *
+                   torch.bmm(xe, p["w_up"]), p["w_down"])
+    # the combine as the dry run partitions it is bitwise the per-token
+    # gather the card runs: the same products, summed in expert order
+    assert torch.equal(L._moe_out(p, L._traced_combine(ye, r, t, r.sel_idx), x, xf),
+                       want)
+    # integer values: every order of the adds is exact
+    ints = torch.randint(-8, 8, ye.shape, generator=g).to(torch.float32)
+    back = torch.ops.repro_torch.moe_scatter(ints, r.sel_idx, t)
+    plain = torch.zeros((t, cfg.d_model))
+    for j, i in enumerate(r.sel_idx.reshape(-1).tolist()):
+        plain[i] += ints.reshape(-1, cfg.d_model)[j]
+    assert torch.equal(back, plain)
+
+
+# ---------------------------------------------------------------------------
 # against the reference's own dry run
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch,shape", REFERENCE_CELLS)
-def test_cells_match_the_reference(arch, shape, reference_results):
-    port = D.lower_cell(arch, shape)
-    ref = reference_results[(arch, shape)]
+def _hold_to_reference(port: dict, ref: dict) -> None:
     # the reference's keys, and its memory keys, are the port's too
     assert set(ref) - {"convert_elements", "seconds"} <= set(port)
     assert set(ref["memory"]) <= set(port["memory"])
@@ -297,3 +445,20 @@ def test_cells_match_the_reference(arch, shape, reference_results):
     want = ref["flops_per_device"] - ref["convert_elements"]["adjusted"]
     assert abs(got / want - 1) <= FLOPS_BAND, (got, want)
     assert 0 < port["memory"]["peak_bytes"] < 80e9
+
+
+@pytest.mark.parametrize("arch,shape", sorted(RECORDED_CELLS))
+def test_recorded_cells_match_the_reference(arch, shape):
+    if jax.__version__ != RECORDED["jax"]:
+        pytest.fail(f"the recorded reference lines are jax "
+                    f"{RECORDED['jax']}'s, this is {jax.__version__}: "
+                    f"record them again with `{RECORDED['command']}`")
+    port = D.lower_cell(arch, shape)
+    assert port["replicated_ops"] == []
+    _hold_to_reference(port, RECORDED_CELLS[(arch, shape)])
+
+
+@pytest.mark.parametrize("arch,shape", REFERENCE_CELLS)
+def test_cells_match_the_reference(arch, shape, reference_results):
+    _hold_to_reference(D.lower_cell(arch, shape),
+                       reference_results[(arch, shape)])

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_blas_thread  # noqa: F401
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 SRC = Path(__file__).resolve().parents[1] / "src"

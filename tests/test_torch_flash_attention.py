@@ -19,6 +19,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_grads_ref, \
     attention_lse_ref, attention_ref, call_count, split_bf16
+from torch_threads import one_blas_thread  # noqa: F401
 
 F32_TOL = 1e-5      # fp32 on both sides; sums in other orders
 # bf16 inputs: the port and the Pallas kernel both widen to fp32 inside

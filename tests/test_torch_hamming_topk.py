@@ -21,6 +21,7 @@ from repro_torch.kernels.hamming_topk import breakdown, ops
 from repro_torch.kernels.hamming_topk.ref import hamming_dist_ref, \
     popcount32
 from repro_torch.kernels.timing import instrumented_source
+from torch_threads import one_blas_thread  # noqa: F401
 
 
 def _codes(b, n, w, seed):

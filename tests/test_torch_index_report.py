@@ -36,6 +36,7 @@ from repro_torch.obs import (Histogram, MetricsRegistry, NULL_TRACER,
 from repro_torch.obs.schema import (INDEX_REPORT_SCHEMA, flatten_numeric,
                                     undeclared)
 from repro_torch.serving.rag_pipeline import RAGPipeline
+from torch_threads import one_blas_thread  # noqa: F401
 
 KW = dict(embed_dim=32, n_hyperplanes=8, s_min=2, s_max=4, max_layers=3,
           chunk_tokens=16, top_k=6, token_budget=512)

@@ -29,6 +29,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.ingest import IngestDrainExhausted, IngestQueueFull, \
     IngestService
 from repro_torch.obs import ManualClock, use_clock
+from torch_threads import one_blas_thread  # noqa: F401
 
 KW = dict(embed_dim=32, n_hyperplanes=8, s_min=2, s_max=4, max_layers=3,
           chunk_tokens=16, top_k=6, token_budget=512)

@@ -43,6 +43,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.lifecycle import LifecycleManager, LifecyclePolicy, \
     Resharder, ShardLoadReport
 from repro_torch.obs import Tracer
+from torch_threads import one_blas_thread  # noqa: F401
 
 pytestmark = pytest.mark.lifecycle
 

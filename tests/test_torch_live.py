@@ -34,6 +34,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.serving import rag_pipeline as port_pipeline
 from repro_torch.serving.live_harness import LiveHarness, make_schedule
 from repro_torch.serving.testing import make_test_engine
+from torch_threads import one_blas_thread  # noqa: F401
 
 pytestmark = pytest.mark.live
 

@@ -32,6 +32,7 @@ from repro_torch.serving.rag_pipeline import RAGPipeline
 from repro_torch.serving.testing import make_test_engine
 from test_torch_index_report import EXCEPTED, _leaves
 from test_torch_serving import Launches
+from torch_threads import one_blas_thread  # noqa: F401
 
 # the JAX ingest suite's configuration (tests/test_ingest.py)
 INGEST_KW = dict(embed_dim=32, n_hyperplanes=8, s_min=2, s_max=4,

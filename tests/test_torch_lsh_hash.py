@@ -23,6 +23,7 @@ from repro_torch.kernels.common import CSRC_DIR, cdiv
 from repro_torch.kernels.lsh_hash import breakdown, ops
 from repro_torch.kernels.lsh_hash.ref import lsh_hash_ref
 from repro_torch.kernels.timing import instrumented_source
+from torch_threads import one_blas_thread  # noqa: F401
 
 SHAPES = [(1, 256, 12), (300, 256, 12), (77, 259, 33), (64, 128, 64),
           (50, 256, 128)]

@@ -23,6 +23,7 @@ from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
 from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.serving.rag_pipeline import RAGPipeline
+from torch_threads import one_blas_thread  # noqa: F401
 
 SCORE_TOL = 1e-5
 QUICKSTART = dict(embed_dim=128, n_hyperplanes=10, s_min=4, s_max=12,

@@ -26,6 +26,7 @@ from repro_torch.kernels.common import CSRC_DIR, MIPS_TILE_ROWS, scan_ranges
 from repro_torch.kernels.mips_topk import breakdown, ops
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
 from repro_torch.kernels.timing import instrumented_source
+from torch_threads import one_blas_thread  # noqa: F401
 
 SCORE_TOL = 1e-6
 NEAR_TIE = 1e-5

@@ -50,6 +50,7 @@ from repro_torch.serving.testing import make_test_engine
 from test_torch_serving import Launches
 from test_torch_train import MOE_CONFIGS, _leaves, _port_of_jax_cfg, \
     _rel_fro
+from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-5          # fp32 outputs, logits, caches and losses

@@ -34,6 +34,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.kernels.mips_topk import ops as mips_ops
 from repro_torch.kernels.quantized_scan import ops as tq
 from repro_torch.serving.rag_pipeline import RAGPipeline
+from torch_threads import one_blas_thread  # noqa: F401
 
 SCORE_TOL = 1e-5
 FULL = 10 ** 6      # coarse_mult that clamps C to the capacity

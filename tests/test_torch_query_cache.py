@@ -33,6 +33,7 @@ from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.lifecycle.reshard import Resharder
 from repro_torch.obs import ManualClock, use_clock
+from torch_threads import one_blas_thread  # noqa: F401
 
 SCORE_TOL = 1e-6     # the reference's own batch-size drift is ~1e-7
 CACHE_KW = dict(embed_dim=64, n_hyperplanes=8, s_min=3, s_max=9,

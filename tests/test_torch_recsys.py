@@ -37,6 +37,7 @@ from repro_torch.models import api as A
 from repro_torch.models import recsys as R
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.train.optimizer import make_train_step, opt_init
+from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-5          # fp32 logits, losses and serve outputs

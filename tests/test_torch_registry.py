@@ -47,6 +47,7 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models import api as A
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as O
+from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SRC = Path(__file__).resolve().parent.parent / "src"

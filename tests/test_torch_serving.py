@@ -35,6 +35,7 @@ from repro_torch.obs import ManualClock, use_clock
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.serving.testing import make_test_engine
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-5          # fp32 logits and caches, port against reference
 LOGIT_TOL = 2e-6    # engine logits at every launch, and greedy margins

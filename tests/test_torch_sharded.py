@@ -46,6 +46,7 @@ from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.kernels.mips_topk import ops as mips_ops
 from repro_torch.lifecycle import Resharder
 from repro_torch.serving.rag_pipeline import RAGPipeline
+from torch_threads import one_blas_thread  # noqa: F401
 
 JAX_TOL = 1e-6      # the reference's batch-size drift (a reference gap)
 QUANT_TOL = 1e-5    # the quantized slice's tolerance

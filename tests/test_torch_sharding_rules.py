@@ -39,6 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import recsys as R
 from repro_torch.models import sharding_ctx
 from repro_torch.models import transformer as T
+from torch_threads import one_blas_thread  # noqa: F401
 
 ARCHS = jax_list_archs()
 MESHES = {"pod1": ((16, 16), ("data", "model")),

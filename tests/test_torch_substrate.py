@@ -35,6 +35,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.lifecycle import LifecyclePolicy
 from repro_torch.serving.rag_pipeline import RAGPipeline
 from repro_torch.serving.testing import make_test_engine
+from torch_threads import one_blas_thread  # noqa: F401
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 

@@ -32,6 +32,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.train import optimizer as O
 from repro_torch.train.loop import LoopConfig, run_training
+from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 PORT_CONFIGS = {"llama3-8b": llama3_8b, "qwen2-7b": qwen2_7b}
