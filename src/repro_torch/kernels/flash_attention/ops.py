@@ -195,7 +195,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
     return dq, dk, dv
 
 
-def traced(t: torch.Tensor) -> bool:
+def _traced(t: torch.Tensor) -> bool:
     """Whether ``t`` is a fake tensor (or a DTensor over fake shards):
     a dry run's stand-in for a tensor on the card, whatever device it
     names, which takes the card's route to the ops' shape contracts."""
@@ -207,7 +207,7 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (a copy where it is not; a
     traced tensor has no address to align)."""
     t = t.contiguous()
-    if traced(t):
+    if _traced(t):
         return t
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -309,7 +309,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         q, k, v = (_kernel_layout(t) for t in (q, k, v))
-        fwd = torch.ops.repro_torch.flash_attention_fwd if traced(q) \
+        fwd = torch.ops.repro_torch.flash_attention_fwd if _traced(q) \
             else flash_attention_fwd_cuda
         o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -319,7 +319,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = torch.ops.repro_torch.flash_attention_bwd if traced(q) \
+        bwd = torch.ops.repro_torch.flash_attention_bwd if _traced(q) \
             else flash_attention_bwd_cuda
         dq, dk, dv = bwd(q, k, v, o, lse, _kernel_layout(do), ctx.causal,
                          ctx.scale)
@@ -332,7 +332,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (b, hq, lq, d); k, v: (b, hkv, lk, d) -> (b, hq, lq, d) in q's
     dtype, differentiable in q, k and v."""
     _check(q, k, v, causal)
-    if q.device.type == "cuda" or traced(q):
+    if q.device.type == "cuda" or _traced(q):
         return FlashAttention.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)

@@ -101,10 +101,9 @@ def _param_dtype(cfg, shape: ShapeSpec, policy=None) -> torch.dtype:
         if shape.kind in TRAIN_KINDS else torch.bfloat16
 
 
-def _n_micro(cfg, shape: ShapeSpec, mesh, override=None) -> int:
+def _n_micro(n_micro: int, shape: ShapeSpec, mesh) -> int:
     """The policy's microbatch count, cut so that each slice stays
     divisible by the batch-shard count (pod * data)."""
-    n_micro = override or _train_policy(cfg)["n_microbatches"]
     gb = shape.global_batch or shape.batch
     if gb:
         sizes = mesh_shape(mesh)
@@ -248,11 +247,11 @@ class Cell:
     batch: List[Leaf]
     opt: List[Leaf]
     model: nn.Module
-    policy: Optional[dict] = None       # overrides of ``_train_policy``
+    policy: Optional[dict] = None   # ``_train_policy``, overrides merged
 
-    @property
-    def train_policy(self) -> dict:
-        return {**_train_policy(self.cfg), **(self.policy or {})}
+    def __post_init__(self):
+        if self.policy is None:
+            self.policy = _train_policy(self.cfg)
 
     def leaves(self) -> List[Leaf]:
         return [lf for lf, _ in self.params] + self.batch + self.opt
@@ -268,19 +267,19 @@ def _build_cell(cfg, shape: ShapeSpec, api: ModelAPI, mesh,
     order (weights, batch, optimizer state), so ``rules.fallbacks``
     logs what the reference's ``_build_cell`` logs."""
     pdt = _param_dtype(cfg, shape, policy)
+    pol = {**_train_policy(cfg), **(policy or {})}
     model, axes = abstract_model(cfg, api, shape, pdt)
     params = param_leaf_map(model, axes)
     batch = batch_leaves(cfg, api, shape)
     train = shape.kind in TRAIN_KINDS and include_optimizer
-    opt = opt_leaves([lf for lf, _ in params],
-                     {**_train_policy(cfg), **(policy or {})}["optimizer"]
-                     ) if train else []
+    opt = opt_leaves([lf for lf, _ in params], pol["optimizer"]) \
+        if train else []
     for lf in [lf for lf, _ in params] + batch + opt:
         lf.spec = rules.spec(mesh, lf.shape, lf.axes)
-    n_micro = _n_micro(cfg, shape, mesh, n_micro_override or
-                       (policy or {}).get("n_microbatches")) if train else 1
+    n_micro = _n_micro(n_micro_override or pol["n_microbatches"], shape,
+                       mesh) if train else 1
     return Cell(cfg, shape, api, pdt, n_micro, train, params, batch, opt,
-                model, policy)
+                model, pol)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +334,7 @@ def _make_batch(cell: Cell, mesh) -> Dict[str, Any]:
 
 def _make_opt(cell: Cell, mesh):
     by_path = {lf.path: lf for lf in cell.opt}
-    kind = cell.train_policy["optimizer"]
+    kind = cell.policy["optimizer"]
     if kind == "adamw":
         path_of = {id(p): lf.path for lf, ps in cell.params for p in ps}
         mu, nu = [], []
@@ -364,7 +363,7 @@ def _make_opt(cell: Cell, mesh):
 def _step_fn(cell: Cell):
     step = cell.api.step_fn(cell.shape)
     if cell.train:
-        pol = cell.train_policy
+        pol = cell.policy
         train = make_train_step(step, n_microbatches=cell.n_micro,
                                 optimizer=pol["optimizer"],
                                 accum_dtype=pol["accum_dtype"])

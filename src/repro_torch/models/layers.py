@@ -36,9 +36,9 @@ from torch import nn
 from repro_torch.common.config import LMConfig, MoEConfig
 from repro_torch.kernels.flash_attention.ops import \
     causal_blocked_attention, chunked_attention, dense_decode_attention, \
-    extend_attention, flash_attention, traced
+    extend_attention, flash_attention
 from repro_torch.models.sharding_ctx import attend_heads, fsdp_gathered, \
-    gqa_heads, merge_heads, shard, split_heads, write_slice
+    gqa_heads, merge_heads, partitioned, shard, split_heads, write_slice
 
 Params = Dict[str, torch.Tensor]
 KV_AXES = ("batch", "kv_heads", "kv_seq", None)     # K/V and their caches
@@ -517,7 +517,7 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the dispatch and combine of traced tensors, as custom ops: a shape
+# the dispatch and combine of the partitioned program, as custom ops: a shape
 # contract (``register_fake``), a flop formula and a DTensor sharding
 # rule, so the dry run (launch/dryrun.py) keeps the experts split and no
 # rank holds every token's contributions
@@ -624,9 +624,9 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     added one after another in the compute dtype: the same sums, in the
     same order, with no atomic add (two runs are bitwise equal).
 
-    A traced tensor (the dry run) takes the dispatch and combine ops
-    (``_Dispatch``, ``_traced_combine``), which DTensor partitions by
-    experts: the per-token gather would need every expert's outputs on
+    Under a sharding context (the dry run) the dispatch and combine
+    are ops (``_Dispatch``, ``_traced_combine``) that DTensor partitions
+    by experts: the per-token gather would need every expert's outputs on
     each rank, and the whole (t, k, d) contribution tensor."""
     b, l, d = x.shape
     t = b * l
@@ -634,7 +634,7 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     r = moe_route(p["router"], xf, moe)
     e, c = r.sel_idx.shape
 
-    if traced(xf):
+    if partitioned():
         # each rank's experts' selections, then their tokens gathered
         idx = shard(r.sel_idx, ("experts", None))
         xe = _Dispatch.apply(xf, idx)
@@ -645,7 +645,7 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     u = torch.bmm(xe, p["w_up"])
     ye = shard(torch.bmm(g * u, p["w_down"]),
                ("experts", None, None))                          # (e, c, d)
-    if traced(ye):
+    if partitioned():
         return _moe_out(p, _traced_combine(ye, r, t, idx), x, xf), r.aux
 
     # slot[e, token]: the token's slot in expert e's selection, or -1

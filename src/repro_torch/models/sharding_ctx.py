@@ -50,6 +50,12 @@ def _current() -> Optional[Tuple[object, LogicalRules]]:
     return getattr(_STATE, "ctx", None)
 
 
+def partitioned() -> bool:
+    """Whether a sharding context is active: the models then take the
+    routes that DTensor can partition (the MoE dispatch and combine)."""
+    return _current() is not None
+
+
 @contextlib.contextmanager
 def activation_sharding(mesh, rules: LogicalRules):
     prev = _current()

@@ -9,6 +9,7 @@ results are held within 1e-6, bf16 operands within 2e-2 (the two
 packages round the same fp32 sums in other orders before the bf16
 output rounding).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,14 @@ from repro.kernels.flash_attention import ops as JO
 from repro_torch.kernels.flash_attention import ops as O
 from torch_threads import one_blas_thread  # noqa: F401
 
+# the reference's compositions under ``jax.jit``, as the JAX engine's
+# launches run them: one compile a shape instead of one a primitive
+_JIT = {name: jax.jit(getattr(JO, name), static_argnames=static)
+        for name, static in (
+            ("chunked_attention", ("causal", "block_k")),
+            ("causal_blocked_attention", ("q_chunk", "block_k")),
+            ("extend_attention", ("block_k",)),
+            ("dense_decode_attention", ()))}
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -50,7 +59,7 @@ def _close(got, want, dtype):
 def test_chunked_attention_matches_reference(dtype, causal, lq, lk,
                                              block_k):
     (jq, jk, jv), (q, k, v) = _inputs(lq * lk, 2, 4, 2, lq, lk, 16, dtype)
-    want = JO.chunked_attention(jq, jk, jv, causal=causal,
+    want = _JIT["chunked_attention"](jq, jk, jv, causal=causal,
                                 block_k=block_k)
     got = O.chunked_attention(q, k, v, causal=causal, block_k=block_k)
     assert got.dtype == q.dtype
@@ -61,7 +70,7 @@ def test_chunked_attention_matches_reference(dtype, causal, lq, lk,
 def test_chunked_attention_kv_len_matches_reference(dtype):
     (jq, jk, jv), (q, k, v) = _inputs(3, 3, 4, 1, 1, 40, 8, dtype)
     kv_len = np.array([1, 17, 40], np.int32)
-    want = JO.chunked_attention(jq, jk, jv, block_k=16,
+    want = _JIT["chunked_attention"](jq, jk, jv, block_k=16,
                                 kv_len=jnp.asarray(kv_len))
     got = O.chunked_attention(q, k, v, block_k=16,
                               kv_len=torch.from_numpy(kv_len))
@@ -76,7 +85,7 @@ def test_chunked_attention_kv_len_matches_reference(dtype):
 def test_causal_blocked_attention_matches_reference(dtype, l, q_chunk,
                                                     block_k):
     (jq, jk, jv), (q, k, v) = _inputs(l, 2, 8, 2, l, l, 16, dtype)
-    want = JO.causal_blocked_attention(jq, jk, jv, q_chunk=q_chunk,
+    want = _JIT["causal_blocked_attention"](jq, jk, jv, q_chunk=q_chunk,
                                        block_k=block_k)
     got = O.causal_blocked_attention(q, k, v, q_chunk=q_chunk,
                                      block_k=block_k)
@@ -91,7 +100,7 @@ def test_extend_attention_matches_reference(dtype, lk, block_k):
     still see their keys."""
     (jq, jk, jv), (q, k, v) = _inputs(lk, 4, 4, 2, 8, lk, 16, dtype)
     offsets = np.array([0, 5, lk - 8, 3], np.int32)
-    want = JO.extend_attention(jq, jk, jv, offsets=jnp.asarray(offsets),
+    want = _JIT["extend_attention"](jq, jk, jv, offsets=jnp.asarray(offsets),
                                block_k=block_k)
     got = O.extend_attention(q, k, v, offsets=torch.from_numpy(offsets),
                              block_k=block_k)
@@ -104,7 +113,7 @@ def test_dense_decode_attention_matches_reference(dtype, kv_len):
     (jq, jk, jv), (q, k, v) = _inputs(7, 4, 8, 2, 1, 33, 16, dtype)
     jl = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
     tl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
-    want = JO.dense_decode_attention(jq, jk, jv, kv_len=jl)
+    want = _JIT["dense_decode_attention"](jq, jk, jv, kv_len=jl)
     got = O.dense_decode_attention(q, k, v, kv_len=tl)
     assert got.dtype == q.dtype
     _close(got, want, dtype)

@@ -13,11 +13,11 @@ the JAX package's, on the CPU.
   attention gives the kernel's shapes without launching it.
 - *Data-only mesh.*  Per-device product flops times the 4 ranks equal
   the unsharded count.
-- *Against the reference.*  One child process runs the reference's
+- *Against the reference.*  Child processes run the reference's
   ``lower_cell(probe=True)`` on 512 forced devices with Auto mesh axes
   (``scripts/dryrun_reference.py``) on deepfm ``serve_p99``, gatedgcn
-  ``full_graph_sm`` and llama3-8b ``decode_32k``; it runs while the
-  other tests do.  The port must give the same mesh and kind, equal
+  ``full_graph_sm`` and llama3-8b ``decode_32k``, one cell each, while
+  the other tests run.  The port must give the same mesh and kind, equal
   ``argument_bytes``, the same set of sharding fallbacks, and flops
   within ``FLOPS_BAND`` of the reference's once each side's dtype
   conversions are taken out: XLA on the CPU converts every bf16 operand
@@ -35,12 +35,13 @@ the JAX package's, on the CPU.
   replicates no op.  MoE: deepseek's 64 experts over 16, a rank's
   expert products are 1/16 of the whole and no buffer it holds is as
   large as the (t, k, d) contributions of the per-token combine.  LM
-  head: on a (2, 2, 4) mesh a training step gathers the head's weight,
-  not the logits' rows or the vocab.  The dispatch and combine ops
-  equal the plain code they stand for.
+  head: on a (2, 2, 4) mesh a training step (run in a child) gathers
+  the head's weight, not the logits' rows or the vocab.  The dispatch
+  and combine ops equal the plain code they stand for.
 - *Against recorded reference lines.*  llama3-8b and deepseek-moe-16b
   ``prefill_32k``, whose reference runs take about a minute each, are
-  held to the same checks against the reference's result lines in
+  held (the port's side computed in a child each) to the same checks
+  against the reference's result lines in
   ``tests/dryrun_reference_cells.json``, which names the ``jax`` version
   and the command that made them; the test fails, naming that command,
   where the installed ``jax`` differs.  These are the cells GQA's head
@@ -89,35 +90,61 @@ RECORDED_CELLS = {(r["arch"], r["shape"]): r for r in RECORDED["cells"]}
 MATMUL = ("bfloat16", "float32")
 
 
-@pytest.fixture(scope="module")
-def reference_child():
-    """The reference's three cells, started at the module's first test
-    so that the child runs beside the others."""
+# the port's side of a recorded cell, in a child: its ``lower_cell``
+# result as one JSON line
+PORT_CELL = ("import json, sys; from repro_torch.launch.dryrun import "
+             "lower_cell; print(json.dumps(lower_cell(*sys.argv[1:])))")
+# this module's ``lm_head_step``, in a child
+LM_HEAD_CHILD = (f"import json, sys; "
+                 f"sys.path.insert(0, {str(ROOT / 'tests')!r}); "
+                 "import test_torch_dryrun as t; "
+                 "print(json.dumps(t.lm_head_step()))")
+
+
+def _child(args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "scripts" / "dryrun_reference.py")] +
-        [f"{a}:{s}" for a, s in REFERENCE_CELLS],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    yield proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    return subprocess.Popen([sys.executable] + args,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
 
 
 @pytest.fixture(scope="module")
-def reference_results(reference_child):
-    out, err = reference_child.communicate(timeout=600)
-    assert reference_child.returncode == 0, err[-4000:]
-    res = [json.loads(line) for line in out.splitlines() if line.strip()]
-    return {(r["arch"], r["shape"]): r for r in res}
+def children():
+    """Started at the module's first test, so that they run beside the
+    other tests: the reference's ``lower_cell`` of each of its three
+    cells, the port's of each recorded cell, and ``lm_head_step``, one
+    child each."""
+    procs = {("reference", a, s): _child(
+        [str(ROOT / "scripts" / "dryrun_reference.py"), f"{a}:{s}"])
+        for a, s in REFERENCE_CELLS}
+    for arch, shape in sorted(RECORDED_CELLS):
+        procs[arch, shape] = _child(["-c", PORT_CELL, arch, shape])
+    procs["lm_head"] = _child(["-c", LM_HEAD_CHILD])
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _lines(proc) -> list:
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-4000:]
+    return [json.loads(line) for line in out.splitlines() if line.strip()]
+
+
+@pytest.fixture(scope="module")
+def reference_results(children):
+    return {(a, s): _lines(children["reference", a, s])[0]
+            for a, s in REFERENCE_CELLS}
 
 
 # ---------------------------------------------------------------------------
 # collectives and roofline
 # ---------------------------------------------------------------------------
-def test_collectives_match_the_hlo_count(reference_child):
+def test_collectives_match_the_hlo_count(children):
     mesh = jax.make_mesh((4,), ("data",), devices=jax.devices()[:4],
                          axis_types=(jax.sharding.AxisType.Auto,))
 
@@ -308,8 +335,8 @@ def test_dry_run_refuses_a_group_and_leaves_none():
 
 
 # ---------------------------------------------------------------------------
-# the partitioned programs on small fake groups (these and the recorded
-# cells run while the reference's child computes its three cells)
+# the partitioned programs on small fake groups (these run while the
+# children compute theirs)
 # ---------------------------------------------------------------------------
 MODEL16 = MeshShape((1, 16), ("data", "model"))
 B, D_HEAD = 2, 16
@@ -382,15 +409,26 @@ def test_moe_layer_keeps_the_experts_split():
     assert counter.largest_bytes < contrib / 2
 
 
-def test_lm_head_gathers_no_vocab():
+LM_HEAD = dict(v=4096, d=128)
+
+
+def lm_head_step() -> dict:
+    """A training step's all-gathers (their shapes) and ``aten.mm``
+    flops on a (2, 2, 4) mesh, run by a child of ``children``."""
     shape = ShapeSpec("s", "training", seq_len=64, global_batch=16)
-    v, d = 4096, 128
     cfg = _lm("llama3-8b", shape, n_heads=4, n_kv_heads=4, d_ff=64,
-              vocab_size=v, d_model=d)
+              vocab_size=LM_HEAD["v"], d_model=LM_HEAD["d"])
     counter = _step(cfg, shape, MeshShape((2, 2, 4),
                                           ("pod", "data", "model")))
-    gathers = [r.shape for r in counter.collectives
-               if r.kind == "all-gather"]
+    return {"gathers": [list(r.shape) for r in counter.collectives
+                        if r.kind == "all-gather"],
+            "mm_flops": counter.op_flops["aten.mm"]}
+
+
+def test_lm_head_gathers_no_vocab(children):
+    step, = _lines(children["lm_head"])
+    v, d = LM_HEAD["v"], LM_HEAD["d"]
+    gathers = [tuple(s) for s in step["gathers"]]
     assert (d, v // 4) in gathers                  # the head's weight
     for s in gathers:
         assert v not in s
@@ -399,7 +437,7 @@ def test_lm_head_gathers_no_vocab():
         assert v // 4 not in s or (len(s) == 2 and s[0] <= d), s
     # the head's products stay on this rank's vocab quarter: forward,
     # input gradient and weight gradient over its 256 of 1024 tokens
-    assert counter.op_flops["aten.mm"] >= 3 * 2 * 256 * d * v // 4
+    assert step["mm_flops"] >= 3 * 2 * 256 * d * v // 4
 
 
 def test_moe_dispatch_and_combine_ops_are_the_plain_code():
@@ -418,8 +456,8 @@ def test_moe_dispatch_and_combine_ops_are_the_plain_code():
                    torch.bmm(xe, p["w_up"]), p["w_down"])
     # the combine as the dry run partitions it is bitwise the per-token
     # gather the card runs: the same products, summed in expert order
-    assert torch.equal(L._moe_out(p, L._traced_combine(ye, r, t, r.sel_idx), x, xf),
-                       want)
+    combined = L._traced_combine(ye, r, t, r.sel_idx)
+    assert torch.equal(L._moe_out(p, combined, x, xf), want)
     # integer values: every order of the adds is exact
     ints = torch.randint(-8, 8, ye.shape, generator=g).to(torch.float32)
     back = torch.ops.repro_torch.moe_scatter(ints, r.sel_idx, t)
@@ -447,18 +485,18 @@ def _hold_to_reference(port: dict, ref: dict) -> None:
     assert 0 < port["memory"]["peak_bytes"] < 80e9
 
 
-@pytest.mark.parametrize("arch,shape", sorted(RECORDED_CELLS))
-def test_recorded_cells_match_the_reference(arch, shape):
-    if jax.__version__ != RECORDED["jax"]:
-        pytest.fail(f"the recorded reference lines are jax "
-                    f"{RECORDED['jax']}'s, this is {jax.__version__}: "
-                    f"record them again with `{RECORDED['command']}`")
-    port = D.lower_cell(arch, shape)
-    assert port["replicated_ops"] == []
-    _hold_to_reference(port, RECORDED_CELLS[(arch, shape)])
-
-
 @pytest.mark.parametrize("arch,shape", REFERENCE_CELLS)
 def test_cells_match_the_reference(arch, shape, reference_results):
     _hold_to_reference(D.lower_cell(arch, shape),
                        reference_results[(arch, shape)])
+
+
+@pytest.mark.parametrize("arch,shape", sorted(RECORDED_CELLS))
+def test_recorded_cells_match_the_reference(arch, shape, children):
+    if jax.__version__ != RECORDED["jax"]:
+        pytest.fail(f"the recorded reference lines are jax "
+                    f"{RECORDED['jax']}'s, this is {jax.__version__}: "
+                    f"record them again with `{RECORDED['command']}`")
+    port, = _lines(children[arch, shape])
+    assert port["replicated_ops"] == []
+    _hold_to_reference(port, RECORDED_CELLS[(arch, shape)])

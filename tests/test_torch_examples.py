@@ -48,12 +48,54 @@ def _printed(fn, *args) -> list:
     return out.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("name", ["quickstart", "live_ingest",
-                                  "rag_serve"])
-def test_example_prints_the_reference_lines(name):
-    want = _printed(_module(name).main)
+PRINTING = ("quickstart", "live_ingest", "rag_serve")
+IMPORTS = (
+    "import importlib.util, sys\n"
+    f"for name in {[f'{n}_torch' for n in PORTED]!r}:\n"
+    f"    spec = importlib.util.spec_from_file_location(name, "
+    f"{str(EXAMPLES)!r} + '/' + name + '.py')\n"
+    "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+    "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+    "print(bad)\n"
+    "sys.exit(1 if bad else 0)\n")
+
+
+@pytest.fixture(scope="module")
+def children():
+    """Started at the module's first test, so that they run beside the
+    port's examples: each reference example that prints, run as a
+    script, and a fresh interpreter that imports the port's examples.
+    OpenBLAS keeps one thread in them, as in this process
+    (``torch_threads``): several processes that each spread their small
+    products over every core slow one another down many times over."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OPENBLAS_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(EXAMPLES / f"{name}.py")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in PRINTING}
+    procs["imports"] = subprocess.Popen(
+        [sys.executable, "-c", IMPORTS], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finished(proc):
+    """(return code, stdout, stderr) of a child."""
+    out, err = proc.communicate(timeout=300)
+    return proc.returncode, out, err
+
+
+@pytest.mark.parametrize("name", PRINTING)
+def test_example_prints_the_reference_lines(name, children):
     got = _printed(_module(f"{name}_torch").main, ["--device", "cpu"])
-    assert got == want
+    rc, out, err = _finished(children[name])
+    assert rc == 0, err[-4000:]
+    assert got == out.splitlines()
     assert len(got) >= 5
 
 
@@ -156,20 +198,8 @@ def test_distributed_retrieval_on_one_rank_switches_collective_off(
     assert one[1:3] == four[1:3]       # the same top-1 nodes
 
 
-def test_examples_import_neither_jax_nor_reference():
-    code = (
-        "import importlib.util, sys\n"
-        f"for name in {[f'{n}_torch' for n in PORTED]!r}:\n"
-        f"    spec = importlib.util.spec_from_file_location(name, "
-        f"{str(EXAMPLES)!r} + '/' + name + '.py')\n"
-        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
-        "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
+def test_examples_import_neither_jax_nor_reference(children):
+    rc, out, err = _finished(children["imports"])
+    assert rc == 0, out + err
     assert sorted(p.stem for p in EXAMPLES.glob("*_torch.py")) == \
         sorted(f"{n}_torch" for n in PORTED)

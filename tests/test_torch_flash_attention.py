@@ -7,6 +7,8 @@ step takes off the TPU).  Inputs are seeded numpy arrays handed to both.
 The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``), against the same plain version.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,20 @@ def _inputs(b, hq, hkv, lq, lk, d, seed):
             rng.standard_normal((b, hkv, lk, d)).astype(np.float32))
 
 
+# the reference's fp32 routes under ``jax.jit``: one compile a shape
+# instead of one a primitive (the bf16 checks below keep the eager
+# ``attention_ref``, whose rounding at every op they are held to)
+_jax_ref = jax.jit(jax_ref, static_argnames=("causal",))
+_chunked = jax.jit(chunked_attention, static_argnames=("causal", "block_k"))
+
+
+@functools.partial(jax.jit, static_argnums=4)
+def _jax_ref_vjp(q, k, v, do, causal):
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, causal=causal),
+                     q, k, v)
+    return vjp(do)
+
+
 def _port(q, k, v, causal, dtype=torch.float32):
     out = ops.flash_attention(*(torch.from_numpy(a).to(dtype)
                                 for a in (q, k, v)), causal=causal)
@@ -58,11 +74,11 @@ def test_forward_matches_jax_routes_fp32(b, hq, hkv, lq, lk, d, causal):
     got = _port(q, k, v, causal)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     for name, want in (
-            ("attention_ref", jax_ref(jq, jk, jv, causal=causal)),
+            ("attention_ref", _jax_ref(jq, jk, jv, causal=causal)),
             ("pallas", flash_attention_pallas(jq, jk, jv, causal=causal,
                                               interpret=True)),
-            ("chunked", chunked_attention(jq, jk, jv, causal=causal,
-                                          block_k=16))):
+            ("chunked", _chunked(jq, jk, jv, causal=causal,
+                                 block_k=16))):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0,
                                    atol=F32_TOL, err_msg=name)
 
@@ -73,7 +89,7 @@ def test_forward_lq_above_lk_not_causal():
     q, k, v = _inputs(2, 4, 2, 45, 19, 32, seed=3)
     got = _port(q, k, v, causal=False)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
-    for want in (jax_ref(jq, jk, jv), chunked_attention(jq, jk, jv)):
+    for want in (_jax_ref(jq, jk, jv), _chunked(jq, jk, jv)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0,
                                    atol=F32_TOL)
 
@@ -109,9 +125,7 @@ def test_gradients_match_jax_grad(b, hq, hkv, lq, lk, d, causal):
     q, k, v = _inputs(b, hq, hkv, lq, lk, d, seed=11 + lq + lk)
     do = np.random.default_rng(5).standard_normal(q.shape).astype(
         np.float32)
-    _, vjp = jax.vjp(lambda a, b_, c: jax_ref(a, b_, c, causal=causal),
-                     *(jnp.asarray(a) for a in (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    want = _jax_ref_vjp(*(jnp.asarray(a) for a in (q, k, v, do)), causal)
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
     ops.flash_attention(*leaves, causal=causal).backward(
         torch.from_numpy(do))

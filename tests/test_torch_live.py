@@ -26,7 +26,7 @@ from repro.embed.hashing import HashingEmbedder as JaxEmbedder
 from repro.serving import rag_pipeline as jax_pipeline
 from repro.serving.live_harness import LiveHarness as JaxHarness, \
     make_schedule as jax_schedule
-from repro.serving.testing import make_test_engine as jax_engine
+from jax_engines import jax_engine
 
 from repro_torch.common.config import EraRAGConfig
 from repro_torch.data.corpus import SyntheticCorpus

@@ -21,7 +21,7 @@ from repro.core.summarize import LMSummarizer as JaxLMSummarizer
 from repro.data.corpus import SyntheticCorpus as JaxCorpus
 from repro.embed.hashing import HashingEmbedder as JaxEmbedder
 from repro.serving.rag_pipeline import RAGPipeline as JaxPipeline
-from repro.serving.testing import make_test_engine as jax_engine
+from jax_engines import jax_engine
 from repro_torch.common.config import EraRAGConfig
 from repro_torch.core.erarag import EraRAG
 from repro_torch.core.summarize import LMSummarizer

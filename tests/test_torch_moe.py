@@ -50,6 +50,7 @@ from repro_torch.serving.testing import make_test_engine
 from test_torch_serving import Launches
 from test_torch_train import MOE_CONFIGS, _leaves, _port_of_jax_cfg, \
     _rel_fro
+from jax_engines import share_launches
 from torch_threads import one_blas_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -428,7 +429,7 @@ def _engines(style, **kw):
     cfg_j, params, tree = _recipe(style)
     ecfg = dict(max_batch=2, max_seq_len=64, max_new_tokens=6)
     ecfg.update(kw)
-    je = JaxEngine(cfg_j, params, JaxEngineConfig(**ecfg))
+    je = share_launches(JaxEngine(cfg_j, params, JaxEngineConfig(**ecfg)))
     pe = make_test_engine(device="cpu", params=tree, **ecfg,
                           **_overrides(style, True))
     want, got = Launches(je, port=False), Launches(pe, port=True)

@@ -26,7 +26,7 @@ from repro.common.config import LMConfig as JaxLMConfig
 from repro.models import transformer as JT
 from repro.obs import ManualClock as JaxClock, use_clock as jax_use_clock
 from repro.obs.trace import Tracer as JaxTracer
-from repro.serving.testing import make_test_engine as jax_engine
+from jax_engines import jax_engine
 from repro_torch.common.config import LMConfig
 from repro_torch.data.tokenizer import EOS_ID
 from repro_torch.models import transformer as T
@@ -61,13 +61,24 @@ CTX = "The capital of France is Paris and the river is Seine . "
 # ---------------------------------------------------------------------------
 # the model functions
 # ---------------------------------------------------------------------------
+# the reference's model functions under ``jax.jit`` (one compile a
+# shape instead of one a primitive; the same functions)
+_STATIC = ("cfg", "max_len", "compute_dtype")
+JT_prefill, JT_padded = (jax.jit(f, static_argnames=_STATIC)
+                         for f in (JT.prefill, JT.prefill_padded))
+JT_extend, JT_decode = (jax.jit(f, static_argnames=_STATIC[::2])
+                        for f in (JT.prefill_extend, JT.decode_step))
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def model_pair(request):
-    """(JAX params, the port's LM, JAX cfg, port cfg); the qwen2-style
-    biases are drawn nonzero so they count."""
+    """(JAX params, the port's LM, JAX cfg, port cfg); the reference's
+    ``init_params`` draw (key 1) under ``jax.jit``, and the qwen2-style
+    biases drawn nonzero so they count."""
     kw = CONFIGS[request.param]
     cfg_j, cfg_t = JaxLMConfig(**kw), LMConfig(**kw)
-    params, _ = JT.init_params(cfg_j, jax.random.PRNGKey(1))
+    params = jax.jit(lambda k: JT.init_params(cfg_j, k)[0])(
+        jax.random.PRNGKey(1))
     tree = jax.tree.map(np.asarray, params)
     if cfg_t.qkv_bias:
         rng = np.random.default_rng(2)
@@ -111,7 +122,7 @@ def test_prefill_matches_reference(model_pair):
     params, model, cfg_j, cfg_t = model_pair
     tokens = np.random.default_rng(0).integers(4, cfg_t.vocab_size,
                                                (2, 11)).astype(np.int32)
-    want = JT.prefill(params, jnp.asarray(tokens), cfg_j, max_len=16,
+    want = JT_prefill(params, jnp.asarray(tokens), cfg=cfg_j, max_len=16,
                       compute_dtype=jnp.float32)
     got = T.prefill(model, tokens, cfg_t, max_len=16,
                     compute_dtype=torch.float32)
@@ -123,9 +134,8 @@ def test_prefill_padded_matches_reference(model_pair):
     params, model, cfg_j, cfg_t = model_pair
     tokens, lengths = _padded(np.random.default_rng(0), [3, 9, 16, 11],
                               16, cfg_t.vocab_size)
-    want = JT.prefill_padded(params, jnp.asarray(tokens),
-                             jnp.asarray(lengths), cfg_j, max_len=32,
-                             compute_dtype=jnp.float32)
+    want = JT_padded(params, jnp.asarray(tokens), jnp.asarray(lengths),
+                     cfg=cfg_j, max_len=32, compute_dtype=jnp.float32)
     got = T.prefill_padded(model, tokens, lengths, cfg_t, max_len=32,
                            compute_dtype=torch.float32)
     _close(got[0], want[0], "logits")
@@ -151,16 +161,15 @@ def test_prefill_extend_matches_reference(model_pair):
     params, model, cfg_j, cfg_t = model_pair
     rng = np.random.default_rng(1)
     base, lengths0 = _padded(rng, [16, 9, 12, 4], 16, cfg_t.vocab_size)
-    _, jc = JT.prefill_padded(params, jnp.asarray(base),
-                              jnp.asarray(lengths0), cfg_j, max_len=32,
-                              compute_dtype=jnp.float32)
+    _, jc = JT_padded(params, jnp.asarray(base), jnp.asarray(lengths0),
+                      cfg=cfg_j, max_len=32, compute_dtype=jnp.float32)
     _, tc = T.prefill_padded(model, base, lengths0, cfg_t, max_len=32,
                              compute_dtype=torch.float32)
     suffix, lengths = _padded(rng, [8, 3, 0, 5], 8, cfg_t.vocab_size)
     offsets = np.array([16, 9, 0, 4], np.int32)
-    want = JT.prefill_extend(params, jnp.asarray(suffix),
-                             jnp.asarray(lengths), jnp.asarray(offsets),
-                             jc, cfg_j, compute_dtype=jnp.float32)
+    want = JT_extend(params, jnp.asarray(suffix), jnp.asarray(lengths),
+                     jnp.asarray(offsets), jc, cfg=cfg_j,
+                     compute_dtype=jnp.float32)
     got = T.prefill_extend(model, suffix, lengths, offsets, tc, cfg_t,
                            compute_dtype=torch.float32)
     live = [b for b in range(4) if lengths[b]]
@@ -172,16 +181,14 @@ def test_decode_step_matches_reference(model_pair):
     params, model, cfg_j, cfg_t = model_pair
     rng = np.random.default_rng(2)
     tokens, lengths = _padded(rng, [12, 12, 12], 12, cfg_t.vocab_size)
-    _, jc = JT.prefill_padded(params, jnp.asarray(tokens),
-                              jnp.asarray(lengths), cfg_j, max_len=20,
-                              compute_dtype=jnp.float32)
+    _, jc = JT_padded(params, jnp.asarray(tokens), jnp.asarray(lengths),
+                      cfg=cfg_j, max_len=20, compute_dtype=jnp.float32)
     _, tc = T.prefill_padded(model, tokens, lengths, cfg_t, max_len=20,
                              compute_dtype=torch.float32)
     for pos in (12, 13, 14):
         step = rng.integers(4, cfg_t.vocab_size, (3, 1)).astype(np.int32)
-        jl, jc = JT.decode_step(params, jnp.asarray(step), jc,
-                                jnp.int32(pos), cfg_j,
-                                compute_dtype=jnp.float32)
+        jl, jc = JT_decode(params, jnp.asarray(step), jc, jnp.int32(pos),
+                           cfg=cfg_j, compute_dtype=jnp.float32)
         tl, tc = T.decode_step(model, step, tc, pos, cfg_t,
                                compute_dtype=torch.float32)
         _close(tl, jl, f"logits at {pos}")

@@ -10,6 +10,7 @@ attention is its plain version, and the JAX step's is
 plain version in ``tests/test_torch_cuda.py``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +54,10 @@ def _port_cfg(name):
     return PORT_CONFIGS[name]().reduced()
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_params(cfg_j):
+    """The reference's weights (key 0) as numpy, drawn once a process
+    for each config (the tests copy them, and change no leaf)."""
     params, _ = JT.init_params(cfg_j, jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, params)
 
@@ -105,7 +109,9 @@ def test_moe_configs_match_reference(name):
     assert cfg.param_count() == get_arch(name).reduced().param_count()
     model = T.init_params(cfg, torch.Generator())
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
-    tree = _jax_params(get_arch(name).reduced())
+    tree = jax.tree.map(np.asarray, jax.jit(          # one compile
+        lambda k: JT.init_params(get_arch(name).reduced(), k)[0])(
+            jax.random.PRNGKey(0)))
     model = params_from_numpy(tree, cfg, device=CPU)
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
     assert [layer.is_moe for layer in model.layers] == \
@@ -139,12 +145,18 @@ def test_weight_bridge_round_trips(name):
         np.testing.assert_array_equal(a, b)
 
 
-def _jax_loss_and_grads(cfg_j, tree, batch, dtype):
-    params = jax.tree.map(jnp.asarray, tree)
-    (loss, aux), grads = jax.value_and_grad(
-        lambda p: JT.loss_fn(p, {k: jnp.asarray(v) for k, v in
-                                 batch.items()}, cfg_j, compute_dtype=dtype),
+@functools.partial(jax.jit, static_argnums=(0, 3))
+def _jax_value_and_grad(cfg_j, params, batch, dtype):
+    return jax.value_and_grad(
+        lambda p: JT.loss_fn(p, batch, cfg_j, compute_dtype=dtype),
         has_aux=True)(params)
+
+
+def _jax_loss_and_grads(cfg_j, tree, batch, dtype):
+    """The reference's loss and gradients, under ``jax.jit``."""
+    (loss, aux), grads = _jax_value_and_grad(
+        cfg_j, jax.tree.map(jnp.asarray, tree),
+        {k: jnp.asarray(v) for k, v in batch.items()}, dtype)
     return float(loss), jax.tree.map(np.asarray, grads)
 
 
