@@ -9,7 +9,10 @@ package.  Phases, each printing one JSON line:
 
 1. ``device``    the card, torch and CUDA versions; builds every kernel
                  of the main path from ``src/repro_torch/csrc`` (one nvcc
-                 per source, started together) into ``build/``.
+                 per source, started together) into ``build/``: the
+                 main path waits for ``lsh_hash`` and ``mips_topk``, and
+                 ``hamming_topk`` and ``flash_attention`` build beside it
+                 (the line is printed after the main path's).
 2. ``main_path`` the paper's loop on ``ERARAG_DEFAULT`` through the entry
                  points a user calls: a 5000-document synthetic corpus
                  (50 % initial build + 5 growth rounds), 64 questions
@@ -151,9 +154,9 @@ package.  Phases, each printing one JSON line:
                  kernels, device ms by kind and host share from the
                  profiler; no ``flash_attention`` launch.
 6i. ``serving_rag`` ``RAGPipeline(rag, engine=...)`` over the main
-                 path's index: 16 questions twice (the second pass all
+                 path's index: 8 questions twice (the second pass all
                  prefix hits, under the margin rule), 4 through
-                 ``answer`` against their batch rows, 8 multihop
+                 ``answer`` against their batch rows, 4 multihop
                  questions in exactly 2 ``generate_batch`` calls; the
                  report's ``prefix_cache`` and ``launches.engine``.
 6j. ``serving_summarizer`` ``EraRAG`` with an ``LMSummarizer`` on the
@@ -229,9 +232,9 @@ package.  Phases, each printing one JSON line:
                  must agree; a rank's failure stops both and the script.
     ``examples`` each ``examples/*_torch.py``'s ``main`` on the card
                  against a CPU run: quickstart, live_ingest and
-                 rag_serve print the same lines; train_lm at its
-                 defaults (300 steps), then its last checkpoint removed
-                 and ``--resume`` from step 200, the resumed losses
+                 rag_serve print the same lines; train_lm at 120 steps
+                 (its default 300 cut), then its last checkpoint removed
+                 and ``--resume`` from step 100, the resumed losses
                  bitwise the unbroken run's, each run's launches counted
                  (attention on the tensor-core route only, 32 forward
                  and 16 backward launches a step, the plain version
@@ -242,7 +245,9 @@ package.  Phases, each printing one JSON line:
                  kernels at its shape (4, 8, 4, 128, 128, 64) held and
                  timed; distributed_retrieval at 2 ranks
                  (card and CPU print the same lines) and at 1 (the
-                 collective off).  Seconds per example.  The
+                 collective off).  The host's runs of train_lm and
+                 distributed_retrieval and the one-rank run go in child
+                 processes beside the card's.  Seconds per example.  The
                  ``reference`` phase then runs again with
                  ``index_shards=4``, exact and quantized.
 7. ``flash_attention`` the forward and backward kernels against the
@@ -346,8 +351,10 @@ package.  Phases, each printing one JSON line:
                  kernels at (1, 40, 10, 4096, 128) held against the
                  plain version and timed.
     ``dryrun``   the dry run (``repro_torch.launch.dryrun``) on a
-                 one-device (1, 1) mesh, in a child process (the
-                 ``collective`` phase owns a real group), at the exact
+                 one-device (1, 1) mesh, in a child process started
+                 with the script (it runs on the host alone, beside the
+                 phases; the ``collective`` phase owns a real group), at
+                 the exact
                  config, depth, batch and policy of seven setups the
                  phases above ran and measured: ``train_path``,
                  ``moe_train`` (Adafactor, bf16 accumulation; the MoE
@@ -362,6 +369,7 @@ package.  Phases, each printing one JSON line:
                  must lie in ``DRYRUN_PEAK_BAND``), the roofline's bound time
                  against the measured step (the step's roofline share),
                  and the predicted flops by dtype at the card's peaks.
+    ``timeline`` the wall seconds of each step of the script.
 10. ``kernels``  one line listing every kernel with its numbers (the
                  ``lsh_hash`` and ``mips_topk`` entries with the
                  launches of phases 6c-6e and 6g-6j beside the main
@@ -388,6 +396,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -2242,7 +2251,12 @@ SERVING_REF_TOL = 1e-4      # card vs CPU logits, fp32 tiny engine
 DECODE_REL_TOL = 1.6e-2
 SERVE_MAX_BATCH = 8
 SERVE_MAX_SEQ = 4096
-SERVE_NEW_TOKENS = 32
+# tokens a request generates (cut from 32; the LM reader's and the
+# summarizer's cut from 16): host-bound decode launches are most of the
+# serving phases' time
+SERVE_NEW_TOKENS = 16
+RAG_NEW_TOKENS = 8
+SUMMARY_TOKENS = 8
 # token lengths (BOS and EOS included) of the serving_engine prompts:
 # buckets 128, 256 (two of the same length), 512, 1024, 2048 and 4096
 # (two, one over 2048)
@@ -2671,10 +2685,18 @@ def _path_kernel_cases(path, phase, timed=False):
     return rec.cases(phase, timed=timed)
 
 
+# the reader's questions a pass, cut from 16 (two batches) to one
+# batch, and its multihop questions, cut from 8
+RAG_QUESTIONS = SERVE_MAX_BATCH
+RAG_MULTIHOP = 4
+
+
 def run_serving_rag(rag, corpus, model, cfg, phase="serving_rag"):
-    """``RAGPipeline(rag, engine=...)`` over the main path's index: 16
-    questions twice (the second pass all prefix hits), 4 through
-    ``answer``, 8 multihop questions in two ``generate_batch`` calls.
+    """``RAGPipeline(rag, engine=...)`` over the main path's index:
+    ``RAG_QUESTIONS`` questions twice (the second pass all prefix hits;
+    one full batch of the engine's slots), 4 through
+    ``answer``, ``RAG_MULTIHOP`` multihop questions in two
+    ``generate_batch`` calls.
     For an MoE model the passes are compared under the margin rule but
     not held to it (``margin_rule(enforce=False)``)."""
     from repro_torch.serving import Engine, EngineConfig
@@ -2684,11 +2706,11 @@ def run_serving_rag(rag, corpus, model, cfg, phase="serving_rag"):
     path = PathLaunches(record=True)
     eng = Engine(cfg, model, EngineConfig(
         max_batch=SERVE_MAX_BATCH, max_seq_len=SERVE_MAX_SEQ,
-        max_new_tokens=16, compute_dtype=torch.bfloat16,
+        max_new_tokens=RAG_NEW_TOKENS, compute_dtype=torch.bfloat16,
         prefix_cache_entries=64))
     pipe = RAGPipeline(rag, engine=eng)
     questions = [qa.question for qa in corpus.qa
-                 if qa.kind == "detailed"][:16]
+                 if qa.kind == "detailed"][:RAG_QUESTIONS]
     first_log = TokenLog(eng)
     t = time.perf_counter()
     first = path.drive(lambda: pipe.answer_batch(questions))
@@ -2716,13 +2738,13 @@ def run_serving_rag(rag, corpus, model, cfg, phase="serving_rag"):
     one_cmp = margin_rule(second_log, one_log,
                           f"{phase} answer vs answer_batch",
                           keys=list(one_log.rows), enforce=not coupled)
-    # 8 multihop questions, those whose round-1 retrieval finds a bridge
+    # the multihop questions, those whose round-1 retrieval finds a bridge
     # first (only they take a bridge-extraction launch)
     hop = [qa.question for qa in corpus.qa if qa.kind == "multihop"]
     rets = rag.query_batch(hop[:256], mode="multihop")
     bridged = [q for q, r in zip(hop, rets) if r.hops == 2]
     check(bridged, f"{phase}: no multihop question finds its bridge")
-    hop = (bridged + [q for q in hop if q not in bridged])[:8]
+    hop = (bridged + [q for q in hop if q not in bridged])[:RAG_MULTIHOP]
     gb = eng.stats["generate_batches"]
     t = time.perf_counter()
     hop_answers = path.drive(
@@ -2752,7 +2774,8 @@ def run_serving_rag(rag, corpus, model, cfg, phase="serving_rag"):
          second_pass_vs_first=pass_cmp,
          answer_vs_answer_batch=one_cmp,
          multihop={"questions": len(hop), "generate_batches": 2,
-                   "bridged": min(len(bridged), 8), "seconds": hop_s},
+                   "bridged": min(len(bridged), RAG_MULTIHOP),
+                   "seconds": hop_s},
          prefix_cache=rep["prefix_cache"],
          launches_engine=rep["launches"]["engine"],
          launches=dict(path.counts), kernel_cases=scans, **_phase_end(t0))
@@ -2783,12 +2806,14 @@ def run_serving_summarizer(model, cfg):
     runs = {}
     for batched in (True, False):
         eng = Engine(cfg, model, EngineConfig(
-            max_batch=SERVE_MAX_BATCH, max_seq_len=1024, max_new_tokens=16,
-            compute_dtype=torch.bfloat16, prefix_cache_entries=0))
+            max_batch=SERVE_MAX_BATCH, max_seq_len=1024,
+            max_new_tokens=SUMMARY_TOKENS, compute_dtype=torch.bfloat16,
+            prefix_cache_entries=0))
         log = TokenLog(eng)
         rag = EraRAG(replace(ERARAG_DEFAULT, batch_summaries=batched),
                      HashingEmbedder(dim=256),
-                     summarizer=LMSummarizer(eng, max_tokens=16),
+                     summarizer=LMSummarizer(eng,
+                                             max_tokens=SUMMARY_TOKENS),
                      device="cuda")
         t = time.perf_counter()
         path.drive(lambda: rag.insert_docs(docs[:SUMMARY_BUILT]))
@@ -2818,7 +2843,7 @@ def run_serving_summarizer(model, cfg):
     emit("serving_summarizer", corpus=f"SyntheticCorpus(n_docs="
          f"{SUMMARY_DOCS}, n_topics=8, seed=0): {SUMMARY_BUILT} built, "
          f"{SUMMARY_DOCS - SUMMARY_BUILT} grown",
-         reduced={"docs": [5000, SUMMARY_DOCS]}, max_tokens=16,
+         reduced={"docs": [5000, SUMMARY_DOCS]}, max_tokens=SUMMARY_TOKENS,
          segments=segments, node_ids_equal=same_ids,
          update_tokens=tokens[True],
          update_tokens_equal=tokens[True] == tokens[False],
@@ -3236,6 +3261,55 @@ def _example(name):
     return importlib.import_module(f"{name}_torch")
 
 
+def _example_child(name, argv):
+    """``examples/<name>_torch.py argv`` in a child process (a session of
+    its own, with the ranks it spawns), started beside the card's runs:
+    (the process, a thread reading its output and timing it to its end,
+    what the thread read); ``_child_lines`` waits for it."""
+    import os
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}_torch.py"),
+         *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT, start_new_session=True)
+    t0, done = time.perf_counter(), {}
+
+    def read():
+        done["out"], done["err"] = proc.communicate()
+        done["seconds"] = time.perf_counter() - t0
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, reader, done
+
+
+def _stop_child(proc):
+    """Kill ``proc``'s session if it is still running."""
+    import os
+    import signal
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _child_lines(child, what):
+    """A child's printed lines and its seconds, once it has ended."""
+    proc, reader, done = child
+    reader.join(timeout=600)
+    if reader.is_alive():
+        _stop_child(proc)
+        reader.join()
+        raise CheckFailed(f"examples: {what} ran over 600 s")
+    check(proc.returncode == 0,
+          f"examples: {what} exited {proc.returncode}: "
+          f"{done['err'][-2000:]}")
+    return done["out"].splitlines(), done["seconds"]
+
+
 def _example_run(main, argv):
     """``main(argv)``'s printed lines, its result and its seconds."""
     import contextlib
@@ -3249,6 +3323,10 @@ def _example_run(main, argv):
 
 # the train_lm example's 2 microbatches a step (its LoopConfig)
 TRAIN_LM_MICROBATCHES = 2
+# its steps, cut from its default 300 to keep the script well inside
+# its time limit: a checkpoint at 100 (its ckpt_every) and at the end
+TRAIN_LM_STEPS = 120
+TRAIN_LM_CKPT = 100
 # card (bf16 compute, the tensor-core attention kernels) against CPU
 # (fp32, the plain versions) over the example's first steps: relative
 # error of each loss (the bf16 losses' tolerance of
@@ -3283,7 +3361,8 @@ def _train_lm_against_cpu(mod):
         step = make_train_step(
             lambda m, bt, dt=dtype: T.loss_fn(m, bt, cfg, compute_dtype=dt),
             n_microbatches=TRAIN_LM_MICROBATCHES,
-            lr_schedule=cosine_schedule(3e-4, warmup=20, total=300))
+            lr_schedule=cosine_schedule(3e-4, warmup=20,
+                                        total=TRAIN_LM_STEPS))
         model = params_from_numpy(tree, cfg, device=dev)
         opt = opt_init(model)
         losses[dev] = []
@@ -3332,8 +3411,8 @@ def run_examples():
     """Each ``examples/*_torch.py``'s ``main`` on the card (its own
     asserts included) against a CPU run of the same example: every
     printed line equal where the example is deterministic.
-    ``train_lm_torch`` at its defaults (300 steps) then, its last
-    checkpoint removed, ``--resume`` from step 200: the resumed losses
+    ``train_lm_torch`` at ``TRAIN_LM_STEPS`` then, its last checkpoint
+    removed, ``--resume`` from ``TRAIN_LM_CKPT``: the resumed losses
     bitwise the unbroken run's; each run's kernels counted (its
     ``PathLaunches``): the attention kernels on the tensor-core route
     only, as many launches as its steps make, the plain version never;
@@ -3341,13 +3420,35 @@ def run_examples():
     first steps held against the CPU (``_train_lm_against_cpu``) and
     the attention kernels at its shape held against the plain version
     and timed.  ``distributed_retrieval_torch`` at 2 ranks (card and
-    CPU) and at 1 (the collective off).  Returns the train_lm runs'
-    launches and the attention case."""
+    CPU) and at 1 (the collective off).  The host's train_lm and
+    distributed_retrieval runs, and the one-rank run, go in child
+    processes beside the card's (their seconds from start to end).
+    Returns the train_lm runs' launches and the attention case."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    seconds, out = {}, {}
+    cpu_tmp = _scratch_dir("train_lm_cpu_")
+    children = {
+        "train_lm_cpu": _example_child("train_lm", [
+            "--steps", "3", "--batch", "2", "--seq", "32", "--device",
+            "cpu", "--ckpt", str(Path(cpu_tmp.name) / "cpu")]),
+        "distributed_retrieval_cpu": _example_child(
+            "distributed_retrieval", ["--ranks", "2", "--device", "cpu"]),
+        # one rank on the card: it prints the auto-off line iff its
+        # collective launch count is None
+        "distributed_retrieval_1_rank": _example_child(
+            "distributed_retrieval", ["--ranks", "1"])}
+    try:
+        return _run_examples(seconds, out, children)
+    finally:
+        for child in children.values():
+            _stop_child(child[0])
+        cpu_tmp.cleanup()
+
+
+def _run_examples(seconds, out, children):
     import shutil
 
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    sys.path.insert(0, str(ROOT / "examples"))
-    seconds, out = {}, {}
     for name in ("quickstart", "live_ingest", "rag_serve"):
         main = _example(name).main
         card, _, seconds[name] = _example_run(main, [])
@@ -3383,20 +3484,22 @@ def run_examples():
 
     with _scratch_dir("train_lm_") as tmp:
         ckpt = Path(tmp) / "card"
+        steps = ["--steps", str(TRAIN_LM_STEPS), "--ckpt", str(ckpt)]
         lines, full, seconds["train_lm"] = counted(
-            "train_lm", ["--ckpt", str(ckpt)], 300)
-        check(full.final_step == 300 and full.losses[-1] < full.losses[0],
+            "train_lm", steps, TRAIN_LM_STEPS)
+        check(full.final_step == TRAIN_LM_STEPS and
+              full.losses[-1] < full.losses[0],
               f"examples: train_lm {lines}")
-        shutil.rmtree(ckpt / "step-00000300")
+        shutil.rmtree(ckpt / f"step-{TRAIN_LM_STEPS:08d}")
         r_lines, resumed, seconds["train_lm_resume"] = counted(
-            "train_lm_resume", ["--ckpt", str(ckpt), "--resume"], 100)
-        check(r_lines[1] == "resumed from step 200" and
-              resumed.losses == full.losses[200:],
+            "train_lm_resume", steps + ["--resume"],
+            TRAIN_LM_STEPS - TRAIN_LM_CKPT)
+        check(r_lines[1] == f"resumed from step {TRAIN_LM_CKPT}" and
+              resumed.losses == full.losses[TRAIN_LM_CKPT:],
               "examples: the resumed losses differ from the unbroken "
               "run's")
-        cpu_lines, _, seconds["train_lm_cpu"] = _example_run(
-            train, ["--steps", "3", "--batch", "2", "--seq", "32",
-                    "--device", "cpu", "--ckpt", str(Path(tmp) / "cpu")])
+        cpu_lines, seconds["train_lm_cpu"] = _child_lines(
+            children["train_lm_cpu"], "train_lm on the CPU")
         check(cpu_lines[0] == lines[0],
               f"examples: train_lm's model line {lines[0]} vs {cpu_lines[0]}")
     t0 = time.perf_counter()
@@ -3417,17 +3520,18 @@ def run_examples():
     dist_main = _example("distributed_retrieval").main
     card, result, seconds["distributed_retrieval"] = _example_run(
         dist_main, ["--ranks", "2"])
-    cpu, _, seconds["distributed_retrieval_cpu"] = _example_run(
-        dist_main, ["--ranks", "2", "--device", "cpu"])
+    cpu, seconds["distributed_retrieval_cpu"] = _child_lines(
+        children["distributed_retrieval_cpu"],
+        "distributed_retrieval on the CPU")
     check(card == cpu, f"examples: distributed_retrieval at 2 ranks "
                        f"prints other lines on the card: {card} vs {cpu}")
     # the loop on one rank: its one slot's scan and the merge
     check(result["launches"] == (1, 2),
           f"examples: distributed_retrieval's launches {result}")
-    one, one_result, seconds["distributed_retrieval_1_rank"] = \
-        _example_run(dist_main, ["--ranks", "1"])
-    check(one[-1].startswith("collective query auto-off") and
-          one_result["launches"] is None,
+    one, seconds["distributed_retrieval_1_rank"] = _child_lines(
+        children["distributed_retrieval_1_rank"],
+        "distributed_retrieval at 1 rank")
+    check(one[-1].startswith("collective query auto-off"),
           f"examples: distributed_retrieval at 1 rank: {one}")
     out["distributed_retrieval"] = {"backend": result["backend"],
                                     "lines": card, "one_rank": one[-1]}
@@ -5199,16 +5303,28 @@ def dryrun_child() -> int:
     return 0
 
 
-def run_dryrun():
-    """The dry run's predictions against the setups' measured peaks and
-    steps (see the module docstring)."""
+def start_dryrun():
+    """The dry-run child, started with the script: it runs on the host
+    alone (fake tensors), beside the phases on the card."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-child"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def run_dryrun(child):
+    """The dry run's predictions (``child``, from ``start_dryrun``)
+    against the setups' measured peaks and steps (see the module
+    docstring)."""
     t0 = _phase_start()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--dryrun-child"], capture_output=True,
-                          text=True, timeout=900)
-    check(proc.returncode == 0,
-          f"dryrun: the child failed:\n{proc.stderr[-4000:]}")
-    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    try:
+        out, err = child.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        _stop_child(child)
+        raise
+    check(child.returncode == 0,
+          f"dryrun: the child failed:\n{err[-4000:]}")
+    results = json.loads(out.strip().splitlines()[-1])
     lo, hi = DRYRUN_PEAK_BAND
     for label, *_ in _dryrun_setups():
         res, got = results[label], MEASURED[label]
@@ -5238,7 +5354,26 @@ def run_dryrun():
         check(lo <= ratio <= hi,
               f"dryrun {label}: predicted peak {res['memory']['peak_bytes']}"
               f" over measured {step_peak} = {ratio}, outside {lo}-{hi}")
+    # seconds: the wait for the child after the last setup's phase
     emit("dryrun_total", setups=len(results), **_phase_end(t0))
+
+
+class Timeline:
+    """Wall seconds of each step of ``main``, printed as the
+    ``timeline`` phase before the kernels' line."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.last
+        self.last = now
+
+    def emit(self):
+        emit("timeline", seconds=self.seconds,
+             total_s=time.perf_counter() - self.t0)
 
 
 def main() -> int:
@@ -5249,32 +5384,60 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
               file=sys.stderr)
         return 2
+    child = start_dryrun()
+    try:
+        return _main(child)
+    finally:
+        _stop_child(child)
+
+
+def _main(dryrun) -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (switches TF32 off)
     from repro_torch.kernels.common import build_kernels
     from repro_torch.kernels.timing import card
 
+    tl = Timeline()
     smi = card()
     print(smi, flush=True)
+    # one nvcc a source, all started together: the main path's two
+    # kernels waited for, the quantized path's and attention's built
+    # beside the main path and joined after it
     t0 = time.perf_counter()
-    builds = build_kernels(["lsh_hash", "mips_topk", "hamming_topk",
-                            "flash_attention"], force=True)
+    with ThreadPoolExecutor(1) as pool:
+        later = pool.submit(build_kernels, ["hamming_topk", "flash_attention"],
+                            force=True)
+        builds = build_kernels(["lsh_hash", "mips_topk"], force=True)
+        first_wall_s = time.perf_counter() - t0
+        tl.lap("device")
+
+        corpus, rag, questions, n_init, launches = run_main_path()
+        tl.lap("main_path")
+        builds.update(later.result())
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=builds,
-         build_wall_s=time.perf_counter() - t0)
-
-    corpus, rag, questions, n_init, launches = run_main_path()
+         build_wall_s={"lsh_hash, mips_topk": first_wall_s,
+                       "all": time.perf_counter() - t0})
+    tl.lap("device")
     run_reference_check()
+    tl.lap("reference")
     lsh_main, lsh_deploy, lsh_wide, lsh_growth = run_lsh(rag, n_init)
+    tl.lap("lsh_hash")
     mips_main, mips_deploy, mips_b1 = run_mips(rag, questions)
+    tl.lap("mips_topk")
     rag_q, q_launches = run_quantized_path(corpus, rag, questions)
+    tl.lap("quantized_path")
     run_reference_check(quantized_scan=True)
+    tl.lap("reference")
     lsh_quant, ham_main, res_main, quant_c32, quant_deploy = run_hamming(
         rag_q, questions)
+    tl.lap("hamming_topk")
     sh_launches, sh_q_launches = run_sharded_path(corpus, rag, rag_q,
                                                   questions)
+    tl.lap("sharded_path")
     life_launches = run_lifecycle(corpus, rag_q, questions)
+    tl.lap("lifecycle")
     del rag_q
     base_path = PathLaunches()
     b1_scan = run_baselines(corpus, base_path)
@@ -5282,42 +5445,60 @@ def main() -> int:
     for name in ("lsh_hash", "mips_topk"):
         check(base_launches[name] > 0,
               f"{name} never launched on the baselines path")
+    tl.lap("baselines")
     qc_launches = run_query_cache(corpus, rag, questions, PathLaunches())
     check(qc_launches["mips_topk"] > 0,
           "mips_topk never launched on the query cache path")
+    tl.lap("query_cache")
     pipe, ingest_launches, per_embed_tick = run_ingest(rag, questions,
                                                        PathLaunches())
     run_index_report(pipe)
     del pipe
+    tl.lap("ingest")
     live_launches = run_live_day(corpus)
     torch.cuda.empty_cache()
+    tl.lap("live_day")
     run_serving_reference()
     model, lm_cfg = run_serving_engine(corpus)
+    tl.lap("serving_engine")
     rag_launches = run_serving_rag(rag, corpus, model, lm_cfg)
+    tl.lap("serving_rag")
     sum_launches = run_serving_summarizer(model, lm_cfg)
     serving_launches = {k: rag_launches[k] + sum_launches[k]
                         for k in rag_launches}
     del model
     torch.cuda.empty_cache()
+    tl.lap("serving_summarizer")
     moe_rag_launches = run_moe_serving(rag, corpus)
     del rag
     gc.collect()
     torch.cuda.empty_cache()
+    tl.lap("moe_serving")
     run_maverick_block()
     sh_deploy = run_sharded_deploy()
+    tl.lap("sharded_2_22")
     coll = run_collective()
+    tl.lap("collective")
     ex = run_examples()
+    tl.lap("examples")
     run_reference_check(index_shards=4)
     run_reference_check(quantized_scan=True, index_shards=4)
+    tl.lap("reference")
     fa_main = run_flash_attention()
+    tl.lap("flash_attention")
     train_launches = run_train_path()
     fp32_launches = run_train_reference()
     resume_launches = run_train_resume()
+    tl.lap("train")
     moe_ref_path = PathLaunches()
     moe_ref_path.drive(run_moe_reference)
     moe_train_launches, moe_fa_case = run_moe_train()
+    tl.lap("moe_train")
     phi3_launches, phi3_fa_case = run_new_families(corpus)
-    run_dryrun()
+    tl.lap("families")
+    run_dryrun(dryrun)
+    tl.lap("dryrun")
+    tl.emit()
 
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
@@ -5337,7 +5518,7 @@ def main() -> int:
     def later(name):
         """The launches of the lifecycle, live-day, train_resume, MoE and
         phi3_train phases and of the train_lm example's card runs (the
-        300 steps and the resume), each read by its ``PathLaunches``
+        120 steps and the resume), each read by its ``PathLaunches``
         (``moe_serving``: the MoE summarizer's and LM reader's runs; its
         engine and maverick runs launch none of these kernels, checked
         for attention)."""

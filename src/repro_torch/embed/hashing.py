@@ -11,16 +11,42 @@ Theorem 1 depends on.
 from __future__ import annotations
 
 import hashlib
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
 
-from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.data.tokenizer import DEFAULT_TOKENIZER, HashTokenizer
 
 
+FEATURE_CACHE = 1 << 17     # texts whose sparse features are kept
+
+
+@lru_cache(maxsize=1 << 20)
 def _feat_hash(token: str, n_features: int) -> int:
     h = hashlib.blake2b(token.encode("utf-8"), digest_size=8).digest()
     return int.from_bytes(h, "little") % n_features
+
+
+def _sparse_features(words: Sequence[str], n_features: int) -> tuple:
+    """(feature ids, their log1p counts): word unigrams and bigrams."""
+    words = [w.lower() for w in words]
+    idx = [_feat_hash("u:" + w, n_features) for w in words]
+    idx += [_feat_hash(f"b:{a}:{b}", n_features)
+            for a, b in zip(words, words[1:])]
+    ids, counts = np.unique(np.asarray(idx, dtype=np.int64),
+                            return_counts=True)
+    # sublinear tf damping of whole counts, exact in float32 as the sums
+    # of ones they replace
+    return ids, np.log1p(counts.astype(np.float32))
+
+
+@lru_cache(maxsize=FEATURE_CACHE)
+def _text_features(text: str, n_features: int) -> tuple:
+    """``_sparse_features`` of ``text`` under ``HashTokenizer``, kept for
+    the most recent texts: a summary re-encodes its members' sentences,
+    and every index over one corpus encodes the same chunks."""
+    return _sparse_features(DEFAULT_TOKENIZER.tokenize(text), n_features)
 
 
 class HashingEmbedder:
@@ -37,16 +63,11 @@ class HashingEmbedder:
         # per encode() call (the batching unit), texts counted per row
         self.stats = {"encode_calls": 0, "texts_encoded": 0}
 
-    def _features(self, text: str) -> np.ndarray:
-        counts = np.zeros(self.n_features, dtype=np.float32)
-        words = [w.lower() for w in self.tok.tokenize(text)]
-        for w in words:
-            counts[_feat_hash("u:" + w, self.n_features)] += 1.0
-        for a, b in zip(words, words[1:]):
-            counts[_feat_hash(f"b:{a}:{b}", self.n_features)] += 1.0
-        # sublinear tf damping
-        np.log1p(counts, out=counts)
-        return counts
+    def _features(self, text: str) -> tuple:
+        """(feature ids, their log1p counts) of ``text``."""
+        if type(self.tok) is HashTokenizer:
+            return _text_features(text, self.n_features)
+        return _sparse_features(self.tok.tokenize(text), self.n_features)
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         """-> (n, dim) float32, rows L2-normalized."""
@@ -54,7 +75,10 @@ class HashingEmbedder:
             raise TypeError("pass a sequence of texts, not a single str")
         self.stats["encode_calls"] += 1
         self.stats["texts_encoded"] += len(texts)
-        feats = np.stack([self._features(t) for t in texts])
+        feats = np.zeros((len(texts), self.n_features), dtype=np.float32)
+        for row, t in zip(feats, texts):
+            ids, vals = self._features(t)
+            row[ids] = vals
         vecs = feats @ self._proj
         norms = np.linalg.norm(vecs, axis=1, keepdims=True)
         norms[norms == 0] = 1.0
