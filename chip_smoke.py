@@ -42,7 +42,8 @@ package.  Phases, each printing one JSON line:
                  Times beside the bound, TFLOP/s, the bound share and
                  each kernel's device-only time.
 5. ``quantized_path`` the same corpus, build, growth rounds and questions
-                 through ``EraRAG`` with ``quantized_scan=True``, the
+                 through ``EraRAG`` on ``ERARAG_QUANTIZED`` (checked
+                 equal to the default with ``quantized_scan=True``), the
                  counters set to 0 just before and read just after:
                  ``lsh_hash``, ``hamming_topk`` and ``mips_rescore`` must
                  have launched, ``hamming_topk`` on its list route only.
@@ -184,14 +185,16 @@ package.  Phases, each printing one JSON line:
                  launch; every shape they launched is held against its
                  plain version.  Snapshot seconds and bytes, restore
                  seconds.
-6l. ``live_day`` ``LiveHarness`` on ``ERARAG_DEFAULT`` with 4 shards and
-                 the query cache over the main path's corpus cut to 2000
+6l. ``live_day`` ``LiveHarness`` on ``ERARAG_STREAMING`` with 4 shards
+                 and the query cache over the main path's 5000
                  documents (``make_schedule(seed=0, query_batch=64,
                  queries_per_phase=4)``, compaction threshold 0.15, the
                  extractive reader; a walk of the schedule, checked
-                 against the service's deepest queue, shows the 5000
-                 documents' schedule over the ingest queue's bound at
-                 2, 4 and 8 bursts): ingest bursts, removals, Zipf query
+                 against the service's deepest queue, keeps the queue
+                 under the profile's bound of 4096, and the same walk
+                 under ``ERARAG_DEFAULT`` at 2, 4 and 8 bursts, over its
+                 bound of 1024, is why the day takes the streaming
+                 profile): ingest bursts, removals, Zipf query
                  batches, a snapshot and restore mid-stream and a policy
                  migration to 8 shards, gated inside ``run()``
                  (availability 1.0, completion, bitwise parity with the
@@ -904,11 +907,12 @@ def _hits_key(hits):
 
 
 def run_quantized_path(corpus, exact, questions):
-    """The main path again with ``quantized_scan=True``, held against
+    """The main path again on the quantized serving profile, held against
     the exact path ``exact`` (same corpus, rounds and questions)."""
     from dataclasses import replace
 
-    from repro_torch.configs.erarag import ERARAG_DEFAULT
+    from repro_torch.configs.erarag import ERARAG_DEFAULT, \
+        ERARAG_QUANTIZED
     from repro_torch.core.erarag import EraRAG
     from repro_torch.core.store import _filter_bias
     from repro_torch.embed.hashing import HashingEmbedder
@@ -918,7 +922,12 @@ def run_quantized_path(corpus, exact, questions):
     from repro_torch.serving.rag_pipeline import RAGPipeline
 
     init, rounds = corpus.growth_rounds(0.5, 5)
-    cfg = replace(ERARAG_DEFAULT, quantized_scan=True)
+    cfg = ERARAG_QUANTIZED
+    # the profile is the default with the scan switched on, so its
+    # numbers compare with every earlier quantized path's
+    check(cfg == replace(ERARAG_DEFAULT, quantized_scan=True),
+          f"quantized path: ERARAG_QUANTIZED is not the default with "
+          f"quantized_scan=True: {cfg}")
     modes = ("collapsed", "detailed", "summarized")
 
     lsh_ops.reset_launch_count()
@@ -1037,7 +1046,7 @@ def run_quantized_path(corpus, exact, questions):
                   f"quantized {mode}: a removed row returned")
     check(store.stats.rows_tombstoned > 0, "no row was tombstoned")
 
-    emit("quantized_path", rows=store.size,
+    emit("quantized_path", profile="ERARAG_QUANTIZED", rows=store.size,
          capacity=store._group.capacity, code_words=store._group.quant.n_words,
          n_coarse=min(cfg.coarse_mult * k, store._group.capacity),
          update_s=update_s, query_batch=len(questions),
@@ -3543,11 +3552,10 @@ def _run_examples(seconds, out, children):
 # phases 6k-6l: the index lifecycle and the live-serving day
 # ---------------------------------------------------------------------------
 
-# the main path's corpus cut from 5000 to 2000 documents: at 5000 the
-# schedule's growth phase queues more documents than the ingest queue's
-# default bound (1024 pending) at any burst count (``_peak_pending_docs``)
-LIVE_DOCS = 2000
-LIVE_BURSTS = (2, 4, 8)     # burst counts walked at 5000 documents
+# burst counts walked under the default profile: at the main path's
+# 5000 documents the growth phase queues more documents than its bound
+# (1024 pending) at any of them (``_peak_pending_docs``)
+LIVE_BURSTS = (2, 4, 8)
 LIVE_SHARDS = 4             # the day's store (its migration goes to 8)
 LIVE_QUERY_BATCH = 64
 LIFECYCLE_SHARDS = 8        # the quantized store's migration: 4 -> 8
@@ -3776,33 +3784,33 @@ def run_lifecycle(corpus, rag_q, questions):
 
 
 def run_live_day(corpus):
-    """``LiveHarness`` on the paper's defaults at 4 shards with the query
-    cache, over the main path's corpus: the seeded schedule's ingest
-    bursts, removals, Zipf query batches, a snapshot and restore
+    """``LiveHarness`` on the streaming-ingest profile at 4 shards with
+    the query cache, over the main path's corpus: the seeded schedule's
+    ingest bursts, removals, Zipf query batches, a snapshot and restore
     mid-stream and one policy-triggered migration to 8 shards, gated
     inside ``run()`` (old-epoch availability, completion, bitwise parity
     with the synchronous replay of ``committed_ops``)."""
-    from repro_torch.configs.erarag import ERARAG_DEFAULT
-    from repro_torch.data.corpus import SyntheticCorpus
+    from repro_torch.configs.erarag import ERARAG_DEFAULT, \
+        ERARAG_STREAMING
     from repro_torch.embed.hashing import HashingEmbedder
     from repro_torch.serving.live_harness import LiveHarness, \
         make_schedule
 
     t0 = _phase_start()
-    cfg = replace(ERARAG_DEFAULT, index_shards=LIVE_SHARDS,
+    cfg = replace(ERARAG_STREAMING, index_shards=LIVE_SHARDS,
                   query_cache=True)
-    # why the corpus is cut: at the main path's 5000 documents the queue
-    # would overflow its bound whatever the number of growth bursts
-    peak_at_main = {bursts: _peak_pending_docs(make_schedule(
-        corpus, seed=0, query_batch=LIVE_QUERY_BATCH, queries_per_phase=4,
-        bursts=bursts), cfg) for bursts in LIVE_BURSTS}
-    check(min(peak_at_main.values()) > cfg.ingest_max_pending_docs,
-          f"live_day: {len(corpus.docs)} documents queue at most "
-          f"{peak_at_main} under the bound; no cut is needed")
-    corpus = SyntheticCorpus.generate(n_docs=LIVE_DOCS, n_topics=64,
-                                      seed=0)
     sched = make_schedule(corpus, seed=0, query_batch=LIVE_QUERY_BATCH,
                           queries_per_phase=4)
+    # why the day takes the streaming profile: under the default one the
+    # queue would overflow its bound whatever the number of growth bursts
+    walk = {"schedule": _peak_pending_docs(sched, ERARAG_DEFAULT),
+            **{f"{bursts}_bursts": _peak_pending_docs(make_schedule(
+                corpus, seed=0, query_batch=LIVE_QUERY_BATCH,
+                queries_per_phase=4, bursts=bursts), ERARAG_DEFAULT)
+               for bursts in LIVE_BURSTS}}
+    check(min(walk.values()) > ERARAG_DEFAULT.ingest_max_pending_docs,
+          f"live_day: {len(corpus.docs)} documents queue at most {walk} "
+          f"under the default profile's bound")
     peak = _peak_pending_docs(sched, cfg)
     check(peak <= cfg.ingest_max_pending_docs,
           f"live_day: {peak} documents queued over the bound")
@@ -3839,13 +3847,12 @@ def run_live_day(corpus):
     emit("live_day", reduced={
         "reader": "extractive (the LM reader runs in serving_rag; at "
                   "1.2-1.5 answers/s it would stretch the day to tens "
-                  "of minutes)",
-        "n_docs": [5000, LIVE_DOCS],
-        "why_n_docs": "at 5000 the growth phase queues more documents "
-                      "than the ingest queue's bound at any burst count",
-        "peak_pending_docs_at_5000_by_bursts": peak_at_main,
-        "peak_pending_docs": peak,
-        "max_pending_docs": cfg.ingest_max_pending_docs},
+                  "of minutes)"},
+         profile="ERARAG_STREAMING", peak_pending_docs=peak,
+         max_pending_docs=cfg.ingest_max_pending_docs,
+         default_profile_walk={
+             "max_pending_docs": ERARAG_DEFAULT.ingest_max_pending_docs,
+             "peak_pending_docs": walk},
          docs=len(corpus.docs), base_docs=len(sched.base_docs),
          query_batch=LIVE_QUERY_BATCH, compact_threshold=0.15,
          phases=[{key: ph.get(key) for key in (

@@ -5,14 +5,17 @@ The JAX suite's small day (``tests/test_live_serving.py``: 14
 documents, seed 11, batches of 3, two query batches a phase, ingest
 bursts, removals, a checkpoint and restore mid-stream and one
 policy-triggered migration) runs once in each package from one
-module-scoped fixture, with the extractive reader and again with the
+module-scoped fixture, with the extractive reader, again with the
 tiny ``make_test_engine`` LM whose weights are carried over from the JAX
-engine.  Both runs pass their own hard gates (old-epoch availability
+engine, and once more with the extractive reader under the ingest fields
+of the streaming profile (``ERARAG_STREAMING``: 4 documents a tick, 32
+chunks an embed launch, a summary cache of 2048, a bound of 4096).
+Both runs pass their own hard gates (old-epoch availability
 through the migration window, completion, bitwise parity with the
 synchronous ``committed_ops`` replay), and the two packages agree: the
 schedule, every answer the day served (answer, context, tokens, hits,
-epoch), the graph's nodes, the final store's rows, and the reports
-outside ``EXCEPTED``.
+epoch), the graph's nodes, the final store's rows, the ingest service's
+deepest queue and tick count, and the reports outside ``EXCEPTED``.
 """
 import dataclasses
 
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 
 from repro.common.config import EraRAGConfig as JaxConfig
+from repro.configs.erarag import ERARAG_STREAMING as JAX_STREAMING
 from repro.data.corpus import SyntheticCorpus as JaxCorpus
 from repro.embed.hashing import HashingEmbedder as JaxEmbedder
 from repro.serving import rag_pipeline as jax_pipeline
@@ -29,6 +33,7 @@ from repro.serving.live_harness import LiveHarness as JaxHarness, \
 from jax_engines import jax_engine
 
 from repro_torch.common.config import EraRAGConfig
+from repro_torch.configs.erarag import ERARAG_STREAMING
 from repro_torch.data.corpus import SyntheticCorpus
 from repro_torch.embed.hashing import HashingEmbedder
 from repro_torch.serving import rag_pipeline as port_pipeline
@@ -43,6 +48,12 @@ KW = dict(embed_dim=32, n_hyperplanes=8, s_min=2, s_max=4, max_layers=3,
           chunk_tokens=16, top_k=6, token_budget=512, index_shards=2,
           query_cache=True)
 CFG = EraRAGConfig(**KW)
+# the streaming profile's ingest fields over the suite's configuration
+STREAMING = ("batch_summaries", "summary_cache_size",
+             "ingest_max_pending_docs", "ingest_docs_per_tick",
+             "ingest_embed_batch")
+KW_STREAMING = {**KW, **{f: getattr(ERARAG_STREAMING, f)
+                         for f in STREAMING}}
 
 EXCEPTED = {
     # host-clock timings of each phase's query batches
@@ -108,25 +119,29 @@ class _Recorder:
         self.cls.answer_batch = self.orig
 
 
-@pytest.fixture(scope="module", params=["extractive", "engine"])
+@pytest.fixture(scope="module", params=["extractive", "engine",
+                                        "streaming"])
 def days(request, tmp_path_factory):
     """One live day in each package: ``{"jax": (harness, report,
-    answers), "port": (...), "schedules": (jax, port)}``."""
+    answers), "port": (...), "schedules": (jax, port), "kind": the
+    param}``."""
     tree = jax.tree.map(np.asarray, jax_engine().params) \
         if request.param == "engine" else None
+    kw = KW_STREAMING if request.param == "streaming" else KW
     jsched = jax_schedule(JaxCorpus.generate(n_docs=14, seed=11), seed=11,
                           query_batch=3, queries_per_phase=2)
     psched = make_schedule(SyntheticCorpus.generate(n_docs=14, seed=11),
                            seed=11, query_batch=3, queries_per_phase=2)
-    jh = JaxHarness(JaxConfig(**KW), _mk_jax_emb, jsched,
+    jh = JaxHarness(JaxConfig(**kw), _mk_jax_emb, jsched,
                     tmp_path_factory.mktemp("jax"), compact_threshold=0.1,
                     engine_factory=jax_engine if tree is not None else None)
-    ph = LiveHarness(CFG, _mk_emb, psched, tmp_path_factory.mktemp("port"),
+    ph = LiveHarness(EraRAGConfig(**kw), _mk_emb, psched,
+                     tmp_path_factory.mktemp("port"),
                      compact_threshold=0.1, device="cpu",
                      engine_factory=(lambda: make_test_engine(
                          device="cpu", params=tree))
                      if tree is not None else None)
-    out = {"schedules": (jsched, psched)}
+    out = {"schedules": (jsched, psched), "kind": request.param}
     for name, harness, module in (("jax", jh, jax_pipeline),
                                   ("port", ph, port_pipeline)):
         with _Recorder(module) as rec:
@@ -242,3 +257,18 @@ def test_every_answer_node_and_row_equal(days):
         for key in ("buf", "row_layers", "row_seq", "alive"):
             np.testing.assert_array_equal(ps[key], np.asarray(rs[key]))
     assert ph.svc.committed_ops == jh.svc.committed_ops
+
+
+def test_queue_depth_and_ticks_equal(days):
+    """Each day's services run on its ingest fields (the streaming day
+    on the reference profile's own), and their deepest queue and tick
+    counts agree across the packages."""
+    jh, ph = days["jax"][0], days["port"][0]
+    want = JAX_STREAMING if days["kind"] == "streaming" else JaxConfig()
+    for cfg in (jh.rag.cfg, ph.rag.cfg):
+        assert [getattr(cfg, f) for f in STREAMING] == \
+            [getattr(want, f) for f in STREAMING]
+    assert 0 < ph.svc.stats.max_queue_depth == \
+        jh.svc.stats.max_queue_depth <= ph.rag.cfg.ingest_max_pending_docs
+    assert ph.svc.stats.ticks == jh.svc.stats.ticks > 0
+    assert ph.svc.stats.idle_ticks == jh.svc.stats.idle_ticks
